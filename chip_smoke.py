@@ -1,18 +1,31 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (gentun_tpu_torch) on one CUDA card, end to end.
 
-Run from the root of the repository, with nothing to build first:
+Run from the root of the repository:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero and prints no result:
+It first builds the port's CUDA kernels from ``gentun_tpu_torch/csrc/`` with
+``nvcc`` into ``build/kernels/`` (an unchanged source is not rebuilt).  Then, in order; any failure exits non-zero and prints no
+result:
 
 1. Device: the card's name, ``nvidia-smi``'s name and power limit, the torch
    and CUDA versions.  No CUDA device: exit 2.
-2. CPU vs card in float32, with TF32 off for matmuls and convolutions and
-   cuDNN kept to deterministic algorithms, as the port's executor sets them
-   (``cnn.exact_numerics``; the process keeps torch's own flags outside
-   it): the same CPU-drawn params and numpy inputs
+K. Kernels: both kernels (``pop_conv3x3_fwd``, also run as the input
+   gradient, and ``pop_conv3x3_wgrad``) at every conv shape of config #2's
+   train step (pop 20, batch 256) and eval forward (batch 1,024), in bf16
+   and float32, at config #1's shapes, in float64 and at 600 slots of batch
+   512 (more slots × splits than a grid's z axis takes), each held against
+   its plain PyTorch version on the same
+   inputs within the tolerance stated in ``TOLERANCE``; each config #2
+   call's kernel, plain, cuDNN grouped-conv (the library yardstick, which the
+   port never calls) and bound times.
+L. Step 0's leaf check: one genome's grad leaves after one train step's
+   backward in slot 0 of a P=2 and of the P=20 model, bf16 and float32,
+   must be the same bits; the differing leaves are printed.
+2. CPU vs card in float32, with TF32 off for matmuls as the port's
+   executor sets it (``cnn.exact_numerics``; the process keeps torch's own
+   flag outside it): the same CPU-drawn params and numpy inputs
    at the full width of config #2 give the same logits and the same grads of
    one train step, and a short cross-validation with dropout 0, run through
    the executor with torch's default flags around it, gives the same
@@ -22,20 +35,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    256, bf16) on synthetic CIFAR-shaped data (10,000 images, 10 classes)
    under the proxy schedule (kfold=2, epochs=(1,)): one warm-up call, one
    timed call, one call with telemetry spans on for the train/eval split.
-   The mean proxy accuracy must be at least 0.5.
-4. Purity on the card, in bf16, float32 and float64 (the float64 body keeps
-   its float32 head and loss): the pop-20 batch against the same call again,
-   against the same batch in reversed slot order (same shapes, other slots)
-   and against three of its genomes trained alone (pop bucket 2, slot 0).
-   The largest fitness differences are printed (a measurement, not a gate).
+   The mean proxy accuracy must be at least 0.5.  The kernels' launch
+   counts are set to 0 before these calls and read after; each must be > 0.
+4. Purity on the card, a gate: in bf16 and float32 the pop-20 batch against
+   the same call again, against the same batch in reversed slot order,
+   against three of its genomes trained alone (pop bucket 2, slot 0) and
+   against two calls of 10 genomes must agree exactly; float64 (its float32
+   head and loss kept) checks one genome alone.
+E. Executors at config #2's width: ``fold_parallel=True`` gives the pop-20
+   batch's fitnesses bit for bit (bf16 and float32); ``train_and_score``
+   and a warm-started CV call give finite accuracies.
 5. The GA entry point: ``Population(GeneticCnnIndividual)`` with
    ``GeneticAlgorithm.run(2)`` at config #1's shape (S=(3,5), filters
    (20,50), pop 10, 28×28×1) on synthetic MNIST-shaped data; every
    individual must get a finite fitness.
+6. A summary line of the run as JSON.
 
-The line before the last carries ``{"kernels": [...]}``: the port has no
-hand-written kernel yet, so the list is empty.  The last line is
-``{"ok": true, "device": {...}}``.
+Then the card's ``nvidia-smi`` name and power limit, the
+``{"kernels": [...]}`` line (each kernel's main-path launches, error and
+per-train-step times) and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -56,9 +74,6 @@ PROXY = dict(
     nodes=NODES, kernels_per_layer=FILTERS, batch_size=256, dense_units=DENSE,
     compute_dtype="bfloat16", seed=0, kfold=2, epochs=(1,), learning_rate=(0.01,),
 )
-#: bf16 dense tensor-core peak of one H100 SXM (NVIDIA data sheet), only to
-#: put the achieved rate in proportion; the card's power limit is printed.
-H100_BF16_PEAK = 989e12
 
 
 def log(msg: str) -> None:
@@ -119,6 +134,196 @@ def phase_device(torch):
     return name, smi
 
 
+def phase_build():
+    """Build the port's CUDA kernels from the checkout's sources (nvcc for
+    sm_90a into build/kernels/) and load them; a failed build raises."""
+    from gentun_tpu_torch.ops import _build
+
+    t0 = time.monotonic()
+    path = _build.build()
+    _build.library()
+    log(f"[build] {path.relative_to(REPO)} in {time.monotonic() - t0:.1f} s "
+        f"(sources: {', '.join(p.name for p in _build._sources())})")
+    for line in _build.build_log.splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            log(f"[build]   {line.strip()}")
+
+
+#: Published peaks of one NVIDIA H100 SXM at its 700 W limit (NVIDIA data
+#: sheet, dense): the bf16 tensor-core rate, the float32 rate outside the
+#: tensor cores (the kernels' float32 path is plain FMA), and the memory rate.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+#: Kernels' tolerance against the plain version on the same inputs, as a
+#: share of the plain result's largest magnitude.  bf16: both sum in float32
+#: and round once to bf16 (1 ulp = 2^-8 of a value), the forward's bias add
+#: rounds once more; 1e-2 is about 2.5 ulps at the top of the scale, 2e-2
+#: for the weight gradient, where cuDNN may round split partials.  float32:
+#: the forward sums at most 1,152 products, the weight gradient up to 262,144
+#: (stage 0) in 64 split partials, in other orders than cuDNN, which may also
+#: take Winograd transforms for a 3×3 conv; 1e-4.  A wiring fault (a slot
+#: reading another's data, a layout slip) moves a result by O(1).
+TOLERANCE = {
+    ("bfloat16", "fwd"): 1e-2, ("bfloat16", "dgrad"): 1e-2, ("bfloat16", "wgrad"): 2e-2,
+    ("float32", "fwd"): 1e-4, ("float32", "dgrad"): 1e-4, ("float32", "wgrad"): 1e-4,
+    ("float64", "fwd"): 1e-12, ("float64", "dgrad"): 1e-12, ("float64", "wgrad"): 1e-12,
+}
+
+
+def conv_layers(nodes, filters, hw: int, c_in: int):
+    """(name, shared input, C, F, H=W, convs of that shape per forward) for
+    each distinct conv of the supergraph; every node conv runs whatever the
+    masks say."""
+    out, h, c = [], hw, c_in
+    for s, (k, f) in enumerate(zip(nodes, filters)):
+        out.append((f"stage{s}_entry", s == 0, c, f, h, 1))
+        out.append((f"stage{s}_node", False, f, f, h, k))
+        h, c = h // 2, f
+    return out
+
+
+def cuda_ms(torch, fn, reps: int = 5) -> float:
+    """Mean device time of one ``fn()`` over ``reps`` launches after one
+    warm-up, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def conv_case(torch, dtype: str, role: str, shared: bool, slots: int,
+              c: int, f: int, b: int, h: int, timed: bool):
+    """One kernel call against its plain version (and cuDNN's grouped conv
+    as the library yardstick) on the card.  ``role`` is ``fwd``, ``dgrad``
+    (the forward kernel on dY with the turned weights) or ``wgrad``.
+    Returns the check's numbers; the phase fails if the error is over the
+    tolerance."""
+    import torch.nn.functional as F
+    from gentun_tpu_torch.ops import pop_conv
+
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(slots * 1000 + c * 10 + f)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=torch.float32).to(dt)
+    x = rnd(b, c, h, h) if shared else rnd(b, slots * c, h, h)
+    w = (rnd(slots, f, c, 3, 3).float() / (9 * c) ** 0.5).to(dt)
+    bias = rnd(slots, f)
+    dy = rnd(b, slots * f, h, h)
+    if role == "wgrad":  # a batch-mean loss's scale: dW and db of order 1
+        dy = (dy.float() / (b * h * h) ** 0.5).to(dt)
+    lib_groups = 1 if shared else slots
+    esize = x.element_size()
+    flops = 2.0 * b * h * h * 9 * c * f * slots
+    if role == "fwd":
+        kernel = lambda: pop_conv.pop_conv3x3_fwd(x, w, bias, shared)
+        plain = lambda: pop_conv.pop_conv3x3_reference(x, w, bias, shared)
+        library = lambda: F.conv2d(x, w.view(slots * f, c, 3, 3), bias.view(-1), padding=1,
+                                   groups=lib_groups)
+        nbytes = (x.numel() + w.numel() + bias.numel() + dy.numel()) * esize
+    elif role == "dgrad":
+        turned = w.flip(-1, -2).transpose(1, 2).contiguous()
+        kernel = lambda: pop_conv.pop_conv3x3_fwd(dy, turned, None)
+        plain = lambda: pop_conv.pop_conv3x3_reference(dy, turned, None)
+        library = lambda: torch.ops.aten.convolution_backward(
+            dy, x, w.view(slots * f, c, 3, 3), None, [1, 1], [1, 1], [1, 1], False, [0, 0],
+            slots, [True, False, False])[0]
+        nbytes = (dy.numel() + w.numel() + x.numel()) * esize
+    else:
+        kernel = lambda: pop_conv.pop_conv3x3_wgrad(x, dy, w.shape, shared)
+        plain = lambda: pop_conv.pop_conv3x3_wgrad_reference(x, dy, w.shape, shared)
+        library = lambda: torch.ops.aten.convolution_backward(
+            dy, x, w.view(slots * f, c, 3, 3), [slots * f], [1, 1], [1, 1], [1, 1],
+            False, [0, 0], lib_groups, [False, True, True])[1:]
+        flops += 1.0 * b * h * h * f * slots
+        nbytes = (x.numel() + dy.numel() + w.numel() + bias.numel()) * esize
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the plain version and the library in IEEE float32
+    try:
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if role == "wgrad" else [(got, want)]
+        err = max(float((a.double() - r.double()).abs().max()) for a, r in pairs)
+        scale = max(float(r.double().abs().max()) for _, r in pairs)
+        tol = TOLERANCE[dtype, role]
+        out = {"dtype": dtype, "role": role, "shape": [slots, c, f, b, h, h, int(shared)],
+               "max_abs_err": err, "rel_err": err / max(scale, 1e-300), "tol": tol}
+        if timed:
+            out["ms"] = cuda_ms(torch, kernel)
+            out["plain_ms"] = cuda_ms(torch, plain)
+            out["library_ms"] = cuda_ms(torch, library)
+            t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+            out["bound_ms"] = max(t_ops, t_bytes)
+            out["bound_ops_ms"], out["bound_bytes_ms"] = t_ops, t_bytes
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    check(out["rel_err"] <= tol,
+          f"{role} kernel vs plain, {dtype}, shape {out['shape']}: {out['rel_err']:.3e} > {tol}")
+    return out
+
+
+def phase_kernels(torch):
+    """Every kernel at every conv shape of config #2's train step (pop 20,
+    batch 256) and eval forward (batch 1,024), in bf16 and float32, and at
+    config #1's shapes (pop 10, batch 128, 28×28 and 14×14, channel counts
+    that are not multiples of 16), each held against its plain version;
+    float64 once.
+    Returns per-step totals of the timed bf16 config #2 calls."""
+    rows = []
+    per_step = {"pop_conv3x3_fwd": {}, "pop_conv3x3_wgrad": {}}
+    for dtype in ("bfloat16", "float32"):
+        for name, shared, c, f, h, n in conv_layers(NODES, FILTERS, 32, 3):
+            roles = ("fwd", "wgrad") if shared else ("fwd", "dgrad", "wgrad")
+            for role in roles:
+                r = conv_case(torch, dtype, role, shared, POP, c, f, 256, h, timed=True)
+                r["layer"], r["per_step"] = name, n
+                rows.append(r)
+                log(f"[K] {dtype:8s} {role:5s} {name:12s} C={c:3d} F={f:3d} {h}x{h} B=256 P={POP}: "
+                    f"err {r['rel_err']:.2e} (tol {r['tol']:.0e}); kernel {r['ms']:.3f} ms, plain "
+                    f"{r['plain_ms']:.3f}, cuDNN grouped {r['library_ms']:.3f}, "
+                    f"bound {r['bound_ms']:.3f} ms x{n} per step")
+                if dtype == "bfloat16":
+                    kname = "pop_conv3x3_wgrad" if role == "wgrad" else "pop_conv3x3_fwd"
+                    tot = per_step[kname]
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ops_ms",
+                                "bound_bytes_ms"):
+                        tot[key] = tot.get(key, 0.0) + n * r[key]
+                    tot["max_abs_err"] = max(tot.get("max_abs_err", 0.0), r["max_abs_err"])
+                    tot["calls"] = tot.get("calls", 0) + n
+            if dtype == "bfloat16":
+                r = conv_case(torch, dtype, "fwd", shared, POP, c, f, 1024, h, timed=True)
+                rows.append(r)
+                log(f"[K] bfloat16 fwd   {name:12s} eval B=1024: err {r['rel_err']:.2e}; kernel "
+                    f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f}, cuDNN grouped "
+                    f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} ms")
+    for dtype in ("bfloat16", "float32"):
+        for name, shared, c, f, h, _ in conv_layers((3, 5), (20, 50), 28, 1):
+            for role in (("fwd", "wgrad") if shared else ("fwd", "dgrad", "wgrad")):
+                r = conv_case(torch, dtype, role, shared, 10, c, f, 128, h, timed=False)
+                rows.append(r)
+                log(f"[K] config #1 {dtype} {role} {name} C={c} F={f} {h}x{h}: "
+                    f"err {r['rel_err']:.2e} (tol {r['tol']:.0e})")
+    for role in ("fwd", "dgrad", "wgrad"):
+        r = conv_case(torch, "float64", role, False, 4, 64, 64, 64, 16, timed=False)
+        rows.append(r)
+        log(f"[K] float64 {role} C=64 F=64 16x16: err {r['rel_err']:.2e} (tol {r['tol']:.0e})")
+    # 600 slots × 128 splits (batch 512 at 32×32) is more blocks than a grid's
+    # z axis takes: the split index rides on x, so the launch must still go.
+    r = conv_case(torch, "bfloat16", "wgrad", False, 600, 3, 4, 512, 32, timed=False)
+    rows.append(r)
+    log(f"[K] bfloat16 wgrad S=600 C=3 F=4 B=512 32x32 (600 x 128 splits): err "
+        f"{r['rel_err']:.2e} (tol {r['tol']:.0e})")
+    for kname, tot in per_step.items():
+        log(f"[K] {kname} per config #2 train step (bf16, {tot['calls']} calls): kernel "
+            f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f}, cuDNN {tot['library_ms']:.3f}, "
+            f"bound {tot['bound_ms']:.3f} ms")
+    return per_step, rows
+
+
 def _max_rel(a, b) -> float:
     """max |a - b| over max |a| (the tolerance's unit)."""
     a, b = a.double(), b.double().to(a.device)
@@ -137,12 +342,11 @@ def phase_parity(torch, card):
     outside = flags()
     with cnn.exact_numerics():
         inside = flags()
-    check(inside == (False, False, True) and flags() == outside,
-          "exact_numerics sets and restores the flags")
-    log(f"[2] TF32 off inside the port's executor (cnn.exact_numerics): "
-        f"torch.backends.cudnn.allow_tf32 = {inside[0]}, torch.backends.cuda.matmul.allow_tf32 = "
-        f"{inside[1]}, torch.backends.cudnn.deterministic = {inside[2]}; outside it torch's "
-        f"own {outside} stay")
+    check(inside == (outside[0], False, outside[2]) and flags() == outside,
+          "exact_numerics turns matmul TF32 off, leaves cuDNN's flags and restores them")
+    log(f"[2] TF32 off for matmuls inside the port's executor (cnn.exact_numerics): "
+        f"torch.backends.cuda.matmul.allow_tf32 = {inside[1]}; the cuDNN flags it leaves "
+        f"(the port calls no cuDNN conv) and torch's own {outside} outside it stay")
     genomes = random_population(NODES, 4, seed=3)
     genomes[0] = {**genomes[0], "S_1": (0, 0, 0)}  # an empty stage: the pass-through
     hashes = cnn._genome_hashes(genomes)
@@ -170,8 +374,8 @@ def phase_parity(torch, card):
             loss = cnn._per_genome_loss(out, y.to(dev)).sum()
             grads[dev, dtype] = dict(zip([n for n, _ in m.named_parameters()],
                                          torch.autograd.grad(loss, list(m.parameters()))))
-    # TF32 off, so both sides are IEEE float32; cuDNN's algorithms (it may take
-    # Winograd or FFT for 3×3) and oneDNN's sum in different orders, ~1e-5
+    # TF32 off, so both sides are IEEE float32; the card's conv kernels and
+    # the CPU's per-slot oneDNN convs sum in different orders, ~1e-5
     # relative per layer through 14 layers.  1e-3 of the scale is a 10× margin.
     rel = _max_rel(logits[cpu, "float32"], logits[card, "float32"])
     log(f"[2] logits P=4 B=32 full width: max|Δ|/max|cpu| = {rel:.3e} (gate 1e-3)")
@@ -215,6 +419,54 @@ def phase_parity(torch, card):
     log(f"[2] CV accs (4 steps/fold, dropout 0): cpu {np.round(on_cpu, 4).tolist()} "
         f"card {np.round(on_card, 4).tolist()} max|Δ| = {diff:.4f} (gate 0.02)")
     check(diff <= 0.02, "CPU vs card CV accuracies")
+
+
+def grad_leaves_slot0(torch, x, y, genomes, pop: int, dtype: str):
+    """Slot 0's grad leaves after one train step's backward at config #2's
+    width: a model of ``pop`` slots holds ``genomes`` (padded by repeating the
+    last), every slot starts from its genome's own init, the batch is the
+    first 256 images, and dropout draws from the genome's own stream, as
+    ``_train_step`` runs it inside the executor's numerics."""
+    from gentun_tpu_torch.models import cnn
+    from gentun_tpu_torch.ops.dag import stack_genome_masks
+    from gentun_tpu_torch.parallel.mesh import pad_population
+
+    dev = torch.device("cuda")
+    genomes, _ = pad_population(genomes, pop)
+    hashes = cnn._genome_hashes(genomes)
+    model = cnn.MaskedGeneticCnn(NODES, FILTERS, pop, (32, 32, 3), DENSE, N_CLASSES,
+                                 0.5, dtype, False, device=dev)
+    init = cnn._init_population_params(model, 1, 0, hashes)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(init[name][0])
+    masks = [{k: torch.as_tensor(v, device=dev) for k, v in st.items()}
+             for st in stack_genome_masks(genomes, NODES)]
+    xb = torch.from_numpy(np.ascontiguousarray(x[:256].transpose(0, 3, 1, 2))).to(dev)
+    yb = torch.from_numpy(y[:256].astype(np.int64)).to(dev)
+    gens = cnn._dropout_generators(0, 0, hashes, dev)
+    with cnn.exact_numerics():
+        loss = cnn._per_genome_loss(model(xb, masks, dropout_gens=gens), yb).sum()
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    return {n: g[0].detach().clone() for n, g in zip(names, grads)}
+
+
+def phase_leaves(torch, x, y, genomes):
+    """Which of slot 0's grad leaves depend on the pop width: one genome in
+    slot 0 of a P=2 model and of the P=20 model (the batch's other genomes in
+    the other slots), the same params, batch and dropout draws, in bf16 and
+    float32; every leaf compared bit for bit.  Returns the differing names."""
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        small = grad_leaves_slot0(torch, x, y, genomes[:1], 2, dtype)
+        wide = grad_leaves_slot0(torch, x, y, genomes, POP, dtype)
+        differ = [n for n in small if not torch.equal(small[n], wide[n])]
+        out[dtype] = differ
+        log(f"[L] grad leaves of slot 0, P=2 vs P={POP}, {dtype}: {len(differ)} of "
+            f"{len(small)} differ: {differ}")
+        check(not differ, f"slot 0's {dtype} grad leaves depend on the pop width: {differ}")
+    return out
 
 
 def phase_main(torch, x, y, genomes):
@@ -264,7 +516,7 @@ def phase_main(torch, x, y, genomes):
         "traced_wall_s": traced,
         "steps_per_fold": steps,
         "achieved_tflops": flops / wall / 1e12,
-        "bf16_peak_share": flops / wall / H100_BF16_PEAK,
+        "bf16_peak_share": flops / wall / PEAK_FLOPS["bfloat16"],
         "mean_acc": mean,
     }
     log(f"[3] timed call: {wall:.3f} s wall (warm-up call {warm_s:.3f} s), "
@@ -277,37 +529,85 @@ def phase_main(torch, x, y, genomes):
 
 
 def phase_purity(x, y, genomes, bf16_calls):
-    """How far the card lets a genome's fitness depend on its batch, three
-    ways: the pop-20 batch called again (determinism), in reversed slot
-    order (the same shapes, so the same library algorithms, every genome in
-    another slot) and three genomes trained alone (pop bucket 2, slot 0:
-    other shapes).  In the main path's bf16 (whose two calls phase 3 made),
-    in float32 and in float64.  The wiring is the same in every dtype, so a
-    gap that the float64 body does not show is the library's arithmetic, not
-    a fault of the port."""
+    """A genome's fitness must not depend on the batch it trained in, four
+    ways, each exactly 0 in bf16 and float32 or the run fails: the pop-20
+    batch called again, the same batch in reversed slot order, three of its
+    genomes trained alone (pop bucket 2, slot 0) and the batch evaluated as
+    two calls of 10 genomes (pop bucket 16).  float64 (its float32 head and
+    loss kept) checks one genome alone against the batch.  Returns the
+    differences and each dtype's batch fitnesses."""
     from gentun_tpu_torch.models.cnn import GeneticCnnModel
 
     picks = [3, 7, 11]
-    rev = genomes[::-1]
-    out = {}
+    half = POP // 2
+    out, batches = {}, {}
     for dtype in ("bfloat16", "float32", "float64"):
         cfg = dict(PROXY, compute_dtype=dtype)
+        run = lambda gs: GeneticCnnModel.cross_validate_population(x, y, gs, **cfg)
         t0 = time.monotonic()
-        first, batch = bf16_calls if dtype == "bfloat16" else [
-            GeneticCnnModel.cross_validate_population(x, y, genomes, **cfg) for _ in range(2)]
-        other_slots = GeneticCnnModel.cross_validate_population(x, y, rev, **cfg)[::-1]
-        alone = [float(GeneticCnnModel.cross_validate_population(x, y, [genomes[i]], **cfg)[0])
-                 for i in picks]
-        repeat_diff = float(np.abs(batch - first).max())
-        slot_diff = float(np.abs(batch - other_slots).max())
-        alone_diff = max(abs(a - float(batch[i])) for a, i in zip(alone, picks))
-        out[dtype] = {"repeat": repeat_diff, "other_slots": slot_diff, "alone": alone_diff}
-        log(f"[4] purity {dtype} ({time.monotonic() - t0:.1f} s): pop-{POP} batch called twice: "
-            f"max|Δfitness| = {repeat_diff:.6f}; vs the same batch in reversed slots: "
-            f"max|Δfitness| = {slot_diff:.6f} over all {POP}")
-        log(f"[4] purity {dtype}: slots {picks} of the pop-{POP} batch "
-            f"{[round(float(batch[i]), 4) for i in picks]} vs alone (bucket 2, slot 0) "
-            f"{[round(a, 4) for a in alone]}: max|Δfitness| = {alone_diff:.6f}")
+        if dtype == "bfloat16":
+            first, batch = bf16_calls
+        elif dtype == "float32":
+            first, batch = run(genomes), run(genomes)
+        else:
+            batch = run(genomes)
+        batches[dtype] = batch
+        diffs = {}
+        if dtype != "float64":
+            diffs["repeat"] = float(np.abs(batch - first).max())
+            diffs["other_slots"] = float(np.abs(batch - run(genomes[::-1])[::-1]).max())
+            split = np.concatenate([run(genomes[:half]), run(genomes[half:])])
+            diffs["two_calls_of_10"] = float(np.abs(batch - split).max())
+        alone = [float(run([genomes[i]])[0]) for i in (picks if dtype != "float64" else picks[:1])]
+        diffs["alone"] = max(abs(a - float(batch[i])) for a, i in zip(alone, picks))
+        out[dtype] = diffs
+        log(f"[4] purity {dtype} ({time.monotonic() - t0:.1f} s), max|Δfitness| over the pop-{POP} "
+            f"batch: {json.dumps(diffs)}; slots {picks[:len(alone)]} in the batch "
+            f"{[round(float(batch[i]), 4) for i in picks[:len(alone)]]}, alone (bucket 2, slot 0) "
+            f"{[round(a, 4) for a in alone]}")
+        for what, d in diffs.items():
+            check(d == 0.0, f"purity {dtype} {what}: max|Δfitness| = {d}")
+    return out, batches
+
+
+def phase_executors(x, y, genomes, batches):
+    """The executors of this slice at config #2's width.  ``fold_parallel``
+    (4 genomes, a pop-4 bucket) must give the same fitnesses, bit for bit,
+    as the pop-20 batch of phases 3 and 4 gave them, in bf16 and float32;
+    ``train_and_score``
+    (train on the first 80% of the images, score on the rest) and a warm-started CV call must
+    give finite accuracies."""
+    from gentun_tpu_torch.models import cnn
+    from gentun_tpu_torch.models.cnn import GeneticCnnModel
+
+    picks = [0, 5, 10, 15]
+    four = [genomes[i] for i in picks]
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.monotonic()
+        fused = GeneticCnnModel.cross_validate_population(
+            x, y, four, **dict(PROXY, compute_dtype=dtype), fold_parallel=True)
+        d = float(np.abs(fused - batches[dtype][picks]).max())
+        out[f"fold_parallel_{dtype}"] = d
+        log(f"[E] fold_parallel {dtype}, 4 genomes ({time.monotonic() - t0:.1f} s): "
+            f"{np.round(fused, 4).tolist()} vs the pop-{POP} batch: max|Δ| = {d}")
+        check(d == 0.0, f"fold_parallel {dtype} equals the pop-{POP} batch")
+    t0 = time.monotonic()
+    n_tr = len(x) * 4 // 5
+    holdout = GeneticCnnModel.train_and_score(x[:n_tr], y[:n_tr], x[n_tr:], y[n_tr:], four, **PROXY)
+    log(f"[E] train_and_score, 4 genomes, {n_tr:,} train / {len(x) - n_tr:,} test "
+        f"({time.monotonic() - t0:.1f} s): {np.round(holdout, 4).tolist()}")
+    check(holdout.shape == (4,) and bool(np.isfinite(holdout).all()), "finite holdout accuracies")
+    cnn._WARM_BANK.clear()
+    t0 = time.monotonic()
+    cold = GeneticCnnModel.cross_validate_population(x, y, four[:2], **PROXY, warm_start=True)
+    warm = GeneticCnnModel.cross_validate_population(x, y, four[:2], **PROXY, warm_start=True)
+    log(f"[E] warm_start: first call {np.round(cold, 4).tolist()} banks {len(cnn._WARM_BANK)} "
+        f"genomes; the second inherits them: {np.round(warm, 4).tolist()} "
+        f"({time.monotonic() - t0:.1f} s)")
+    check(len(cnn._WARM_BANK) == 2 and bool(np.isfinite(warm).all()), "warm-start bank")
+    cnn._WARM_BANK.clear()
+    out["holdout_mean"] = float(holdout.mean())
     return out
 
 
@@ -328,6 +628,40 @@ def phase_ga():
         f"{best.get_fitness():.4f}, fitnesses {np.round(fits, 4).tolist()}")
 
 
+KERNEL_SOURCE = "gentun_tpu_torch/csrc/pop_conv3x3.cu"
+
+
+def replaces(source: str):
+    """``{kernel: file:line}`` from the source note's ``// replaces <kernel>:
+    <file:line>`` lines: what each kernel stands in for in the JAX package."""
+    out = {}
+    with open(os.path.join(REPO, source)) as fh:
+        for line in fh:
+            if line.startswith("// replaces "):
+                name, where = line[len("// replaces "):].split(":", 1)
+                out[name.strip()] = where.strip()
+    return out
+
+
+def kernels_line(per_step, launches):
+    """The ``{"kernels": [...]}`` record: each kernel's launches on the main
+    path (phase 3) and, from phase K, its error against the plain version and
+    its times summed over the calls of one config #2 train step (bf16)."""
+    where = replaces(KERNEL_SOURCE)
+    out = []
+    for name, tot in per_step.items():
+        out.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": where[name], "launches": launches[name],
+            "max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes" if tot["bound_bytes_ms"] >= tot["bound_ops_ms"] else "operations",
+            "library_ms": tot["library_ms"],
+            "per": f"config #2 train step, bf16, pop {POP}, batch 256: {tot['calls']} calls",
+        })
+    return {"kernels": out}
+
+
 def main() -> int:
     import torch
 
@@ -340,19 +674,32 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 3
+    from gentun_tpu_torch.ops import pop_conv
+
     t_start = time.monotonic()
+    phase_build()
     name, smi = phase_device(torch)
-    phase_parity(torch, torch.device("cuda"))
+    per_step, _ = phase_kernels(torch)
     x, y = synthetic_cifar(N_DATA)
     genomes = random_population(NODES, POP, seed=2)
+    leaves = phase_leaves(torch, x, y, genomes)
+    phase_parity(torch, torch.device("cuda"))
+    for k in pop_conv.LAUNCHES:
+        pop_conv.LAUNCHES[k] = 0
     bf16_calls, main_result = phase_main(torch, x, y, genomes)
-    purity = phase_purity(x, y, genomes, bf16_calls)
+    launches = dict(pop_conv.LAUNCHES)
+    log(f"[3] kernel launches in the three main-path calls: {launches}")
+    for k, n in launches.items():
+        check(n > 0, f"{k} launched on the main path")
+    purity, batches = phase_purity(x, y, genomes, bf16_calls)
+    executors = phase_executors(x, y, genomes, batches)
     phase_ga()
-    summary = {"main_path": main_result, "purity_max_abs_diff": purity,
+    summary = {"main_path": main_result, "launches": launches, "purity_max_abs_diff": purity,
+               "differing_grad_leaves": leaves, "executors": executors,
                "card": smi, "total_s": time.monotonic() - t_start}
     log(f"[6] summary: {json.dumps(summary)}")
     print(smi)
-    print(json.dumps({"kernels": []}))
+    print(json.dumps(kernels_line(per_step, launches)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

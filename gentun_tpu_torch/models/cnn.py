@@ -7,22 +7,20 @@ head with dropout, staged-LR SGD with momentum, k-fold cross-validation,
 fitness = mean validation accuracy.  How it runs differs:
 
 - **The population is a tensor axis, not a ``vmap``.**  Activations are
-  ``(B, P·C, H, W)``; every conv after the stage-0 entry conv is one
-  ``F.conv2d(..., groups=P)``, so genome ``p`` only ever sees its own
+  ``(B, P·C, H, W)``.  Every 3×3 conv is the port's own population-batched
+  kernel (``ops/pop_conv.py``, CUDA source in ``csrc/pop_conv3x3.cu``)
+  with the genome as a grid axis, so genome ``p`` only ever sees its own
   channels.  The stage-0 entry conv reads the input that every genome
-  shares, so it is one conv with ``P·F`` output channels.  The dense head is
-  per genome through ``torch.bmm`` over ``(P, B, D)``.
+  shares.  The dense head is per genome: one ``torch.mm`` per genome.
 - **Masks are data.**  Every genome runs the same supergraph; the mask
   scalars (``adj``, ``entry``, ``active``, ``exit``, ``has_active``) multiply
   in the compute dtype exactly where the reference multiplies them.
 - **bfloat16 compute, float32 params and logits** by explicit casts that
   follow flax's ``dtype=`` semantics (params are cast to the compute dtype
   inside each layer; the last Dense and the logits are float32).  No
-  autocast.  float32 means IEEE float32 on a CUDA card too, and the card
-  gives the same bits for the same call: the executor turns TF32 off for
-  cuDNN convs and cuBLAS matmuls and keeps cuDNN to deterministic
-  algorithms while it runs (``exact_numerics``), and gives the caller's
-  settings back after.
+  autocast.  float32 means IEEE float32 on a CUDA card too: the conv
+  kernels run float32 as plain FMA loops, and the executor turns TF32 off
+  for cuBLAS matmuls while it runs (``exact_numerics``).
 - **The executor is a host loop.**  Folds and steps are a Python loop over
   device-resident carries (params, momentum, per-genome dropout generators);
   the dataset uploads once and is cached across evaluations.  Nothing is
@@ -32,15 +30,18 @@ fitness = mean validation accuracy.  How it runs differs:
   content hash, then moved to the device, so a CPU run and a CUDA run start
   from the same weights; dropout draws from one device generator per
   (fold, genome), so no genome's draws depend on its slot, its batch or the
-  padding.  On a CUDA card the arithmetic is exact across slots and calls
-  within one pop bucket; across buckets cuDNN picks its conv algorithm by
-  shape, so bf16 and float32 fitnesses may differ there (a float64 body
-  does not).
+  padding.  And no sum a slot's arithmetic takes depends on how many slots
+  run beside it: the conv kernels fix their tiles and the order of every
+  reduction from the layer's shape alone, and the dense head runs one
+  product per genome at the same shape whatever P is.  So a genome's
+  fitness is the same bits alone, in any slot of any batch and in any pop
+  bucket, on the CPU and on the card (the
+  learned cap=1 route of ``_chunked_by_cap`` runs unpadded, still at the
+  same per-slot shapes).
 
-Left out of this slice (they raise ``NotImplementedError`` where a knob asks
-for them): the fused ``fold_parallel`` executor, ``train_and_score``, the
-warm-start bank, multi-device placement and the big-genome routing that
-``device_budget`` turns on.
+Left out of this slice (it raises ``NotImplementedError`` where a knob asks
+for it): the big-genome routing that ``device_budget`` turns on, and
+multi-device placement.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dag import stack_genome_masks
+from ..ops.pop_conv import PopConv3x3Fn
 from ..parallel.mesh import (
     SIZE_SMALL,
     classify_genome_cost,
@@ -66,6 +68,7 @@ from ..parallel.mesh import (
     pad_population,
     pop_bucket,
 )
+from ..telemetry import lineage as _lineage
 from ..telemetry import spans as _tele
 from ..telemetry.registry import get_registry as _get_registry
 from ..utils.device_state import mark_backend_used
@@ -88,13 +91,12 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 class _PopConv3x3(nn.Module):
-    """P independent 3×3 SAME convs (+bias) as one conv call.
+    """P independent 3×3 SAME convs (+bias), one :class:`PopConv3x3Fn` call.
 
     ``weight`` is ``(P, F, C, 3, 3)`` (OIHW per genome), ``bias`` ``(P, F)``.
-    With ``shared_input`` the input is ``(B, C, H, W)``, read by every genome
-    (one conv with ``P·F`` outputs); otherwise it is ``(B, P·C, H, W)`` and
-    the conv is grouped over P.  Params are cast to the compute dtype inside
-    the call, as flax's ``nn.Conv(dtype=...)`` does.
+    With ``shared_input`` the input is ``(B, C, H, W)``, read by every
+    genome; otherwise it is ``(B, P·C, H, W)``.  Params are cast to the
+    compute dtype inside the call, as flax's ``nn.Conv(dtype=...)`` does.
     """
 
     def __init__(self, pop: int, c_in: int, features: int, shared_input: bool, device=None):
@@ -104,16 +106,16 @@ class _PopConv3x3(nn.Module):
         self.shared_input = shared_input
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        pop, f, c = self.weight.shape[:3]
-        w = self.weight.to(dtype).reshape(pop * f, c, 3, 3)
-        b = self.bias.to(dtype).reshape(pop * f)
-        return F.conv2d(x, w, b, padding=1, groups=1 if self.shared_input else pop)
+        return PopConv3x3Fn.apply(x, self.weight.to(dtype), self.bias.to(dtype), self.shared_input)
 
 
 class _PopDense(nn.Module):
-    """P independent Dense layers: ``(P, B, D_in) @ (P, D_in, D_out) + (P, D_out)``.
+    """P independent Dense layers: genome ``p`` computes ``x[p] @ W[p] + b[p]``.
 
-    The kernel keeps flax's ``(in, out)`` layout per genome.
+    The kernel keeps flax's ``(in, out)`` layout per genome.  One ``torch.mm``
+    per genome rather than one ``bmm`` over P: a product's shape, and so the
+    library's choice of algorithm and its sums, is then the same at any P,
+    and the bias gradient reduces over one genome's batch at a time.
     """
 
     def __init__(self, pop: int, d_in: int, d_out: int, device=None):
@@ -122,8 +124,9 @@ class _PopDense(nn.Module):
         self.bias = nn.Parameter(torch.empty(pop, d_out, device=device))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = torch.bmm(x, self.weight.to(dtype))
-        return y + self.bias.to(dtype)[:, None, :]
+        slots = zip(x.contiguous().unbind(0), self.weight.to(dtype).unbind(0),
+                    self.bias.to(dtype).unbind(0))
+        return torch.stack([torch.mm(xp, wp) + bp for xp, wp, bp in slots])
 
 
 def _scale(v: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -414,24 +417,24 @@ def _segment_bounds(total_steps: int, segment_steps) -> List[Tuple[int, int]]:
 
 @contextlib.contextmanager
 def exact_numerics():
-    """IEEE float32 and deterministic cuDNN algorithms inside the block.
+    """IEEE float32 matmuls inside the block.
 
-    PyTorch lets cuDNN convolutions run float32 in TF32 by default (10-bit
-    mantissa); the reference's float32 is IEEE float32, so TF32 is off for
-    convs and matmuls.  cuDNN may also pick float32 algorithms whose sums
-    land in a different order on every call; ``cudnn.deterministic`` keeps it
-    to algorithms that give the same bits for the same call, so a fitness is
-    a function of (genome, config, seed, pop bucket).  The executor runs every
-    fold inside this block; the caller's three flags are restored on exit.
+    PyTorch lets cuBLAS matmuls run float32 in TF32 when its flag says so
+    (10-bit mantissa); the reference's float32 is IEEE float32, so TF32 is
+    off for the dense head's products.  The port's own convs never use TF32
+    and sum in an order fixed by the layer's shape, and the dense head runs
+    one product per genome, so a fitness is a function of (genome, config,
+    seed) alone: the same bits in any slot, batch or pop bucket.  The
+    executor runs every fold inside this block; the caller's flag is
+    restored on exit.
     """
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
-    cudnn.deterministic = True
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = False
     try:
         yield
     finally:
-        cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic = saved
+        matmul.allow_tf32 = saved
 
 
 def _device_span(kind: str, t0: float, device: torch.device, attrs: Dict[str, Any]) -> None:
@@ -455,13 +458,17 @@ def _run_segmented(
     batch_idx: np.ndarray,
     steps_per_epoch: int,
     eval_batch_size: int,
+    domain: int = 0,
+    warm_keys: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Host loop over folds × segments of train steps; returns (kfold, P) accs.
 
     Per fold: load that fold's initial params into ``model``, zero the
-    momentum, seed the per-genome dropout generators, run the schedule's
-    steps, then the weighted eval.  Each fold's accuracies stay on the
-    device until every fold is queued.
+    momentum, seed the per-genome dropout generators (of stream domain
+    ``domain``), run the schedule's steps, then the weighted eval.  Each
+    fold's accuracies stay on the device until every fold is queued.  With
+    ``warm_keys`` (the real genomes' hashes) fold 0's trained params go into
+    the warm-start bank.
     """
     device = x_full.device
     kfold, total_steps = batch_idx.shape[0], batch_idx.shape[1]
@@ -477,7 +484,7 @@ def _run_segmented(
             for name, p in named.items():
                 p.copy_(params[name][f])
         momentum_bufs = [torch.zeros_like(p) for p in named.values()]
-        gens = _dropout_generators(cfg["seed"], f, hashes, device) if dropout else None
+        gens = _dropout_generators(cfg["seed"], f, hashes, device, domain) if dropout else None
         bidx = torch.as_tensor(batch_idx[f], device=device)
         with exact_numerics():
             for s, e in bounds:
@@ -495,6 +502,8 @@ def _run_segmented(
             accs.append(_eval_fold(model, masks, x_full, y_full, vi, vw, eval_batch_size))
             if tele:
                 _device_span("eval", t0, device, {"pop": model.pop, "fold": f})
+        if f == 0 and warm_keys is not None:
+            _warm_bank_deposit(model, warm_keys)
     return torch.stack(accs).cpu().numpy().astype(np.float32)
 
 
@@ -526,9 +535,13 @@ def _genome_hashes(genomes: Sequence[Mapping[str, Any]]) -> np.ndarray:
     return out
 
 
-#: Domain constant for stream separation, the reference's value: it keeps
-#: parameter-init streams disjoint from dropout streams under one seed.
+#: Domain constants for stream separation, the reference's values:
+#: _INIT_DOMAIN keeps parameter-init streams disjoint from dropout streams
+#: under one seed; _HOLDOUT_DOMAIN keeps train_and_score's init and dropout
+#: streams disjoint from CV fold 0's, so a holdout training under the
+#: search's own seed never replicates the CV training it checks.
 _INIT_DOMAIN = 0x1217
+_HOLDOUT_DOMAIN = 0x5C04E
 
 _MASK64 = (1 << 64) - 1
 
@@ -550,13 +563,15 @@ def _stream_seed(*words: int) -> int:
 
 
 def _dropout_generators(
-    seed: int, fold: int, hashes: np.ndarray, device: torch.device
+    seed: int, fold: int, hashes: np.ndarray, device: torch.device, domain: int = 0
 ) -> List[torch.Generator]:
-    """One device generator per genome slot, seeded from (seed, fold, hash)."""
+    """One device generator per genome slot, seeded from (seed, fold, hash),
+    or from (seed, domain, fold, hash) for a separate stream domain."""
+    head = (seed,) if not domain else (seed, domain)
     gens = []
     for hi, lo in hashes:
         g = torch.Generator(device=device)
-        g.manual_seed(_stream_seed(seed, fold, hi, lo))
+        g.manual_seed(_stream_seed(*head, fold, hi, lo))
         gens.append(g)
     return gens
 
@@ -569,7 +584,8 @@ _TRUNC_NORMAL_STD = 0.87962566103423978
 def _init_population_params(
     model: MaskedGeneticCnn, kfold: int, seed: int, genome_hashes: np.ndarray, domain: int = 0
 ) -> Dict[str, torch.Tensor]:
-    """Per-(fold, genome) initial params on the CPU, each ``(kfold, *shape)``.
+    """Per-(fold, genome) initial params on the CPU, each ``(kfold, n, *slot_shape)``
+    for the ``n`` genomes of ``genome_hashes`` and the model's per-slot shapes.
 
     flax's ``lecun_normal`` for every weight (truncated normal on [-2, 2]
     with stddev ``1/sqrt(fan_in)``) and zero biases; torch's default init is
@@ -578,8 +594,10 @@ def _init_population_params(
     starts from the same weights whatever its slot, batch or device.
     """
     named = dict(model.named_parameters())
+    n = len(genome_hashes)
     out = {
-        name: torch.zeros((kfold, *p.shape), dtype=torch.float32) for name, p in named.items()
+        name: torch.zeros((kfold, n, *p.shape[1:]), dtype=torch.float32)
+        for name, p in named.items()
     }
     weights = [name for name in named if name.endswith(".weight")]
     for f in range(kfold):
@@ -593,6 +611,61 @@ def _init_population_params(
                 nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)
                 w.mul_(float(np.sqrt(1.0 / fan_in)) / _TRUNC_NORMAL_STD)
     return out
+
+
+#: Parent→child weight bank for multi-fidelity warm starts (the
+#: ``warm_start`` knob), as in the reference.  Keyed by the 64-bit genome
+#: content hash (both ``_genome_hashes`` words), so a promoted genome finds
+#: exactly ITS lower-rung parameters, whatever its batch or slot.  Values
+#: are ``{param name: (slot_shape) float32 numpy}``, the trained fold-0
+#: params, insertion-ordered for LRU eviction.  Process-local by design: a
+#: promotion that lands elsewhere cold-starts, which is always correct.
+_WARM_BANK: Dict[Tuple[int, int], Dict[str, np.ndarray]] = {}
+_WARM_BANK_CAP = 64
+
+
+def _warm_bank_deposit(model: MaskedGeneticCnn, hashes: np.ndarray) -> None:
+    """Bank slot ``i``'s trained params under ``hashes[i]``, for each row of
+    ``hashes`` (the real genomes, slots ``0..len-1``)."""
+    host = {name: p.detach().cpu().numpy() for name, p in model.named_parameters()}
+    for i, (hi, lo) in enumerate(hashes):
+        key = (int(hi), int(lo))
+        _WARM_BANK.pop(key, None)
+        _WARM_BANK[key] = {name: leaf[i].copy() for name, leaf in host.items()}
+    while len(_WARM_BANK) > _WARM_BANK_CAP:
+        del _WARM_BANK[next(iter(_WARM_BANK))]
+
+
+def _warm_start_overlay(
+    params: Dict[str, torch.Tensor], hashes: np.ndarray
+) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Overlay banked lower-rung params onto fresh inits, where shapes match.
+
+    ``params`` leaves are ``(kfold, P, ...)`` CPU tensors, changed in place:
+    a banked genome's params go into its slot across the WHOLE fold axis
+    (each fold still has its own batches and dropout stream).  A bank entry
+    of another layer set is skipped; a leaf whose shape or dtype disagrees
+    keeps its fresh init.  Returns (params, slots_warmed).
+    """
+    warmed = 0
+    for i, (hi, lo) in enumerate(hashes):
+        key = (int(hi), int(lo))
+        banked = _WARM_BANK.get(key)
+        if banked is None:
+            continue
+        _WARM_BANK[key] = _WARM_BANK.pop(key)  # LRU touch
+        if set(banked) != set(params):
+            continue
+        hit = False
+        for name, leaf in params.items():
+            src = torch.from_numpy(banked[name])
+            if tuple(src.shape) == tuple(leaf.shape[2:]) and src.dtype == leaf.dtype:
+                leaf[:, i] = src
+                hit = True
+        if hit:
+            warmed += 1
+            _lineage.record("warm_started", "bank:%x:%x" % key, slot=i)
+    return params, warmed
 
 
 # ---------------------------------------------------------------------------
@@ -671,9 +744,6 @@ def _device_dataset(key_x, key_y, xp: np.ndarray, yp: np.ndarray, perm: np.ndarr
 #: device OOMs (see _chunked_by_cap).
 _POP_PROGRAM_CAP: Dict[Any, int] = {}
 
-#: cap_keys whose cap=1 exact-size routing has already been warned about.
-_EXACT_ROUTE_WARNED: set = set()
-
 
 def _oom_cap_key(cfg: Dict[str, Any]):
     """Every config field that changes a program's per-genome memory."""
@@ -685,7 +755,6 @@ def _oom_cap_key(cfg: Dict[str, Any]):
         str(cfg["compute_dtype"]),
         tuple(cfg["input_shape"]),
         int(cfg["n_classes"]),
-        bool(cfg["fold_parallel"]),
         cfg["segment_steps"],
         int(cfg["kfold"]) if cfg.get("kfold") else None,
         int(cfg.get("microbatch", 1) or 1),
@@ -700,8 +769,8 @@ def _chunked_by_cap(run, genomes, cap_key, run_exact=None):
     cap is REMEMBERED for this config, so later generations pre-chunk.  A
     singleton that still does not fit in its padded 2-wide program retries
     through ``run_exact`` (unpadded); once cap=1 is learned every evaluation
-    of that config runs 1-wide, and batch-composition purity no longer holds
-    across that boundary (warned once per config).
+    of that config runs 1-wide.  None of this moves a fitness: a slot's
+    arithmetic is the same at any width, padded or not.
     """
     cap = _POP_PROGRAM_CAP.get(cap_key)
     if cap is not None and len(genomes) > cap:
@@ -710,15 +779,6 @@ def _chunked_by_cap(run, genomes, cap_key, run_exact=None):
              for i in range(0, len(genomes), cap)]
         )
     if cap == 1 and len(genomes) == 1 and run_exact is not None:
-        if cap_key not in _EXACT_ROUTE_WARNED:
-            _EXACT_ROUTE_WARNED.add(cap_key)
-            logger.warning(
-                "config with learned memory cap=1: all its evaluations now "
-                "run 1-wide unpadded — fitnesses measured before this "
-                "boundary came from numerically distinct multi-slot "
-                "programs (batch-composition purity does not hold across "
-                "the cap=1 boundary)",
-            )
         return run_exact(genomes)
     fallback = None
     try:
@@ -730,9 +790,7 @@ def _chunked_by_cap(run, genomes, cap_key, run_exact=None):
             _POP_PROGRAM_CAP[cap_key] = 1
             logger.warning(
                 "singleton population batch exhausted device memory in its "
-                "padded (2-wide) program; retrying exact-size (1-wide, "
-                "unpadded — batch-composition purity does not hold for "
-                "this genome)",
+                "padded (2-wide) program; retrying exact-size (1-wide, unpadded)",
             )
             fallback = run_exact
         else:
@@ -843,13 +901,15 @@ def _prepare_population_setup(cfg: Dict[str, Any], genomes: Sequence[Mapping[str
     return device, genomes, n_real, masks, model, _genome_hashes(genomes)
 
 
-def _refuse_unported(cfg: Dict[str, Any]) -> None:
-    """Raise for knobs whose executor is not ported yet, instead of silently
-    running something else."""
-    if cfg["fold_parallel"]:
-        raise NotImplementedError("fold_parallel=True (the fused executor) is not ported yet")
-    if cfg["warm_start"]:
-        raise NotImplementedError("warm_start=True (the warm-start bank) is not ported yet")
+def _refuse_big_genomes(cfg: Dict[str, Any]) -> None:
+    """Raise where ``device_budget`` routes a config off the wide-pop path:
+    that routing is not ported yet, and nothing else runs in its place."""
+    size_class, _ = _genome_size_class(cfg)
+    if size_class != SIZE_SMALL:
+        raise NotImplementedError(
+            f"device_budget puts this config in size class {size_class!r}; "
+            "big-genome routing is not ported yet"
+        )
 
 
 class GeneticCnnModel(GentunModel):
@@ -868,9 +928,15 @@ class GeneticCnnModel(GentunModel):
       runs there.  There is no multi-device placement yet.
     - ``segment_steps``: the length of one segment of the host loop (the
       unit a telemetry ``train`` span covers); validated as in the reference.
-    - ``cache_dir``: accepted and unused: nothing is compiled.
-    - ``fold_parallel``, ``warm_start`` and a ``device_budget`` that routes a
-      genome off the wide-pop path raise ``NotImplementedError``.
+    - ``cache_dir``: accepted and unused: the conv kernels build once into
+      ``build/kernels/`` of the checkout (``ops/_build.py``).
+    - ``fold_parallel``: accepted for the reference's API; the folds run one
+      after another as without it, and a fitness is the same bits either
+      way (``PERF.md`` records why the port has no fused-folds executor).
+    - ``warm_start``: the reference's process-local warm-start bank; off
+      with ``fold_parallel``, as in the reference.
+    - a ``device_budget`` that routes a genome off the wide-pop path raises
+      ``NotImplementedError``.
 
     Data contract: ``x_train``/``y_train`` are treated as immutable; the
     permuted dataset is cached on the device across ``evaluate()`` calls,
@@ -970,13 +1036,7 @@ class GeneticCnnModel(GentunModel):
             ]
             return np.mean(per_rep, axis=0, dtype=np.float64).astype(np.float32)
         cfg0 = _normalize_config(x_train, y_train, config)
-        _refuse_unported(cfg0)
-        size_class, _ = _genome_size_class(cfg0)
-        if size_class != SIZE_SMALL:
-            raise NotImplementedError(
-                f"device_budget puts this config in size class {size_class!r}; "
-                "big-genome routing is not ported yet"
-            )
+        _refuse_big_genomes(cfg0)
         return _chunked_by_cap(
             lambda gs: cls._cross_validate_population_one(x_train, y_train, gs, **config),
             list(genomes),
@@ -1038,11 +1098,112 @@ class GeneticCnnModel(GentunModel):
 
         params = _init_population_params(model, kfold, cfg["seed"], hashes)
         x_dev, y_dev = _device_dataset(x_train, y_train, x, y, perm, cfg, device)
-        accs = _run_segmented(
-            cfg, model, masks, params, hashes, x_dev, y_dev,
-            val_idx, val_weight, batch_idx, steps_per_epoch, eval_bs,
+        # Parent→child weight inheritance (multi-fidelity ladder): overlay
+        # each real slot's own lower-rung trained params where shapes match,
+        # and bank fold 0's results for the next rung.  Off with
+        # fold_parallel, as in the reference, whose fused executor has no
+        # per-fold boundary.
+        warm_keys = hashes[:n_real] if cfg["warm_start"] and not cfg["fold_parallel"] else None
+        if warm_keys is not None:
+            _, warmed = _warm_start_overlay(params, warm_keys)
+            if warmed:
+                logger.debug("warm start: %d/%d slots inherited banked params", warmed, n_real)
+        return _run_segmented(
+            cfg, model, masks, params, hashes, x_dev, y_dev, val_idx, val_weight,
+            batch_idx, steps_per_epoch, eval_bs, warm_keys=warm_keys,
+        ).mean(axis=0)[:n_real]
+
+    # -- final holdout evaluation (not part of the reference's API) --------
+
+    @classmethod
+    def train_and_score(
+        cls,
+        x_train,
+        y_train,
+        x_test,
+        y_test,
+        genomes: Sequence[Mapping[str, Any]],
+        **config,
+    ) -> np.ndarray:
+        """Train each genome on all of ``x_train`` and score it on the held-out
+        ``x_test``: P test accuracies, the paper-style final number (the search
+        itself uses :meth:`cross_validate_population`).  ``fitness_reps`` and
+        OOM chunking work as there."""
+        reps_raw = config.get("fitness_reps", 1)
+        reps = 1 if reps_raw is None else int(reps_raw)
+        # reps < 1 falls through to _normalize_config, which raises.
+        if reps > 1:
+            inner = {**config, "fitness_reps": 1}
+            base_seed = int(config.get("seed", 0) or 0)
+            per_rep = [
+                cls.train_and_score(
+                    x_train, y_train, x_test, y_test, genomes,
+                    **{**inner, "seed": base_seed + 7919 * r},
+                )
+                for r in range(reps)
+            ]
+            return np.mean(per_rep, axis=0, dtype=np.float64).astype(np.float32)
+        cfg0 = _normalize_config(x_train, y_train, config)
+        _refuse_big_genomes(cfg0)
+        return _chunked_by_cap(
+            lambda gs: cls._train_and_score_one(x_train, y_train, x_test, y_test, gs, **config),
+            list(genomes),
+            _oom_cap_key(cfg0),
+            run_exact=lambda gs: cls._train_and_score_one(
+                x_train, y_train, x_test, y_test, gs, **{**config, "pop_padding": False}
+            ),
         )
-        return accs.mean(axis=0)[:n_real]
+
+    @classmethod
+    def _train_and_score_one(
+        cls,
+        x_train,
+        y_train,
+        x_test,
+        y_test,
+        genomes: Sequence[Mapping[str, Any]],
+        **config,
+    ) -> np.ndarray:
+        """The holdout as one "fold" of the segmented executor: its train
+        rows are the whole train block and its validation rows the test block
+        of one device-resident array (train first).  Init and dropout draw
+        from the ``_HOLDOUT_DOMAIN`` streams, so a holdout training under the
+        search's own seed never replicates CV fold 0's."""
+        cfg = _normalize_config(x_train, y_train, config)
+        x_tr, y_tr = _prepare_data(x_train, y_train, cfg)
+        x_te, y_te = _prepare_data(x_test, y_test, cfg)
+        if len(genomes) == 0:
+            return np.zeros((0,), dtype=np.float32)
+        device, genomes, n_real, masks, model, hashes = _prepare_population_setup(cfg, genomes)
+
+        n_tr, n_te = x_tr.shape[0], x_te.shape[0]
+        batch_size = min(cfg["batch_size"], n_tr)
+        steps_per_epoch = max(n_tr // batch_size, 1)
+        total_steps = sum(cfg["epochs"]) * steps_per_epoch
+        eval_bs, n_val_padded = _eval_batch_size(batch_size, n_te)
+        pad = n_val_padded - n_te
+        _fit_microbatch(cfg, batch_size, total_steps)
+
+        # Host-side RNG exactly as the reference draws it.
+        rng = np.random.default_rng(cfg["seed"])
+        order = np.concatenate(
+            [rng.permutation(n_tr) for _ in range(sum(cfg["epochs"]))]
+        )[: total_steps * batch_size]
+        batch_idx = order.astype(np.int64).reshape(1, total_steps, batch_size)
+        val_idx = (n_tr + np.concatenate([np.arange(n_te), np.zeros(pad)])).astype(np.int64)[None]
+        val_weight = np.concatenate([np.ones(n_te, np.float32), np.zeros(pad, np.float32)])[None]
+
+        params = _init_population_params(model, 1, cfg["seed"], hashes, domain=_HOLDOUT_DOMAIN)
+        # The combined array is built per call: a holdout runs once per
+        # search, so it is not cached.
+        x_full = torch.from_numpy(np.concatenate([x_tr, x_te])).to(device)
+        x_full = x_full.permute(0, 3, 1, 2).contiguous()
+        y_full = torch.from_numpy(np.concatenate([y_tr, y_te]).astype(np.int64)).to(device)
+        accs = _run_segmented(
+            cfg, model, masks, params, hashes, x_full, y_full, val_idx, val_weight,
+            batch_idx, steps_per_epoch, eval_bs, domain=_HOLDOUT_DOMAIN,
+        )
+        return accs[0][:n_real]
 
 
 def _normalize_config(x_train, y_train, config: Dict[str, Any]) -> Dict[str, Any]:

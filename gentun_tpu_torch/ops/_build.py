@@ -1,0 +1,107 @@
+"""Build the port's CUDA sources into one shared library at first use, and load it.
+
+The sources are ``gentun_tpu_torch/csrc/*.cu`` and ``*.cuh``.  On the first
+call of :func:`library` in a process, ``nvcc`` compiles them for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``) into
+``build/kernels/libgentun_kernels_<hash>.so`` at the root of the checkout,
+where ``<hash>`` covers the sources and the flags, so an edited source builds
+anew and an unchanged one is loaded as it is.  The library has a plain C
+interface and is loaded with ``ctypes``: pointers and the stream pass as
+``c_void_p``.  Importing this module needs neither ``nvcc`` nor a card; only
+:func:`library` does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+#: The compiler's output of the build this process ran (``-Xptxas -v``:
+#: registers, shared memory and spills per kernel); empty when it loaded a
+#: library built earlier.
+build_log = ""
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "gentun_pop_conv3x3_fwd": (_I, [_I, _P, _P, _P, _P, *[_I] * 6, _L, _L, _P]),
+    "gentun_pop_conv3x3_wgrad": (_I, [_I, *[_P] * 6, *[_I] * 8, _L, _L, _P]),
+    "gentun_cuda_error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if not CUDA_HOME:
+        raise RuntimeError("no CUDA toolkit found (CUDA_HOME unset and no nvcc on PATH)")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libgentun_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the library for them exists; returns its path.
+
+    The compiler writes to a temporary name that is renamed into place, so
+    two processes building at once never load a half-written file.  A failed
+    build raises with the compiler's output.
+    """
+    global build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed (once per process)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = restype, argtypes
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc:
+        msg = library().gentun_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

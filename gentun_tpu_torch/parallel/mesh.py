@@ -56,7 +56,8 @@ def pop_bucket(n: int) -> int:
 
     The port runs eagerly and compiles nothing, but keeps the same buckets:
     the padded population is what the batched trainer runs, so the port's
-    program shapes (and cuDNN's algorithm choices) follow the reference's.
+    shapes follow the reference's.  Its fitnesses do not depend on the
+    bucket (a slot's arithmetic is the same at any width).
     ``populations._compile_bucket`` mirrors it.
     """
     if n >= 16:

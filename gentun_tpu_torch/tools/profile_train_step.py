@@ -10,12 +10,14 @@ port's own init, then, under the executor's precision setting
 - times 5 train steps and one eval batch with CUDA events (after 3 warm-up
   steps);
 - traces the same steps with ``torch.profiler`` and prints the device
-  kernels by total time, grouped (convolution, matmul, elementwise, pooling,
-  reduction, copy, other) and one by one, with the device's busy share of the
-  traced wall time.
+  kernels by total time, grouped (the port's own conv kernels, library
+  convolution, matmul, elementwise, pooling, reduction, copy, other) and one
+  by one, with the device's busy share of the traced wall time.
 
 Prints the numbers as one JSON line after the table.  Needs a CUDA
-device; exits 2 without one.
+device; exits 2 without one, and 1 if a library (cuDNN) convolution kernel
+ran in the traced steps: the port's convs are its own kernels
+(``csrc/pop_conv3x3.cu``).
 """
 
 from __future__ import annotations
@@ -33,8 +35,10 @@ POP, STEPS = 20, 5
 
 #: Kernel-name patterns for the grouped totals, tried in order.
 GROUPS = [
-    ("convolution", re.compile(r"conv|cudnn|implicit|xmma|winograd|dgrad|wgrad|fprop|sm90", re.I)),
-    ("matmul", re.compile(r"gemm|bmm|matmul|cutlass", re.I)),
+    ("port conv", re.compile(r"fwd_bf16_kernel|fwd_fma_kernel|wgrad_bf16_kernel|wgrad_fma_kernel|"
+                             r"wgrad_finalize_kernel")),
+    ("convolution", re.compile(r"conv|cudnn|implicit|winograd|dgrad|wgrad|fprop", re.I)),
+    ("matmul", re.compile(r"gemm|bmm|matmul|cutlass|nvjet", re.I)),
     ("pooling", re.compile(r"pool", re.I)),
     ("reduction", re.compile(r"reduce|sum|norm|softmax|nll|cross_entropy|argmax", re.I)),
     ("copy", re.compile(r"copy|memcpy|memset|cat|index|gather|scatter", re.I)),
@@ -159,8 +163,10 @@ def main() -> int:
         "groups_ms_per_step": groups,
         "top_kernels_ms": {k: v / 1e3 for k, v in top},
     }
+    out["library_conv_launches"] = sum(1 for name, _, _ in spans if _group(name) == "convolution")
+    print(f"library (cuDNN) convolution kernels in the traced steps: {out['library_conv_launches']}")
     print(json.dumps(out))
-    return 0
+    return 1 if out["library_conv_launches"] else 0
 
 
 if __name__ == "__main__":

@@ -24,6 +24,23 @@ from gentun_tpu_torch.ops.dag import stack_genome_masks
 
 CPU = torch.device("cpu")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's torch work, restored after.
+
+    The port's plain conv runs one small ``F.conv2d`` per slot; with several
+    test workers on the same cores, each of those calls' thread-pool
+    barriers waits on descheduled threads (on an 8-core host beside 7 busy
+    processes, two small fitness calls took 28.6 s with 8 threads and 0.35 s
+    with 1).  Nothing these tests compare depends on the thread count, except
+    where a test sets its own.
+    """
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 FAST = dict(
     nodes=(3,),
     kernels_per_layer=(8,),
@@ -67,12 +84,12 @@ def _ref_model(nodes, filters, dense, n_classes, dtype, exit_conv):
     )
 
 
-def _ref_init(model, genomes, nodes, input_shape, kfold, seed=0):
+def _ref_init(model, genomes, nodes, input_shape, kfold, seed=0, domain=0):
     """The reference's (kfold, P)-prefixed initial params, as numpy."""
     stacked = [{k: jnp.asarray(v) for k, v in st.items()} for st in ref_stack(genomes, nodes)]
     hashes = ref_cnn._genome_hashes(genomes)
     params = ref_cnn._init_population_params(
-        model, stacked, input_shape, len(genomes), kfold, seed, hashes)
+        model, stacked, input_shape, len(genomes), kfold, seed, hashes, domain=domain)
     return jax.tree.map(np.asarray, params)
 
 
@@ -257,9 +274,9 @@ def _inject_reference_init(monkeypatch, genomes_by_pop, cfg, input_shape):
                            4, "float32", False)
 
     def init(model, kfold, seed, genome_hashes, domain=0):
-        genomes = genomes_by_pop[model.pop]
+        genomes = genomes_by_pop[len(genome_hashes)]
         np.testing.assert_array_equal(genome_hashes, ref_cnn._genome_hashes(genomes))
-        ref = _ref_init(ref_model, genomes, cfg["nodes"], input_shape, kfold, seed)
+        ref = _ref_init(ref_model, genomes, cfg["nodes"], input_shape, kfold, seed, domain)
         return {k: torch.as_tensor(np.array(v)) for k, v in
                 params_from_reference(ref, cfg["nodes"], input_shape).items()}
 
@@ -323,9 +340,9 @@ class TestBatchCompositionPurity:
 
 
 def test_executor_runs_exact_numerics_and_restores_flags(separable_data, monkeypatch):
-    """Inside a fitness call float32 is IEEE float32 (TF32 off for convs and
-    matmuls) and cuDNN keeps to deterministic algorithms; the caller's flags
-    come back unchanged after it."""
+    """Inside a fitness call float32 matmuls are IEEE float32 (TF32 off);
+    the port calls no cuDNN convolution, so cuDNN's flags are left as the
+    caller set them, and the caller's matmul flag comes back after it."""
     x, y = separable_data
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     seen = []
@@ -343,7 +360,7 @@ def test_executor_runs_exact_numerics_and_restores_flags(separable_data, monkeyp
         after = cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic
     finally:
         cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic = saved
-    assert seen and set(seen) == {(False, False, True)}
+    assert seen and set(seen) == {(True, False, False)}
     assert after == (True, True, False)
 
 
@@ -417,6 +434,190 @@ def test_non_oom_errors_propagate():
         port_cnn._chunked_by_cap(run, [{"S_1": (1, 0, 1)}], ("test-non-oom",))
 
 
+class TestPurityAtWidth:
+    """At 32×32×3, batch 64, S=(3,4), filters (16,32) the grouped conv's
+    weight and bias gradients on the CPU depended on the group count (with
+    4 or more intra-op threads; equal with 1 or 2), so a genome's gradient
+    depended on its batch.  The port's conv runs every slot at the same shapes: slot 0's
+    gradient leaves are the same bits at P=2 and P=12."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_slot0_grad_leaves_equal_alone_and_in_batch(self, dtype):
+        from gentun_tpu_torch.parallel.mesh import pad_population
+
+        rng = np.random.default_rng(0)
+        x = _nchw(rng.normal(size=(64, 32, 32, 3)).astype(np.float32))
+        y = torch.as_tensor(rng.integers(0, 10, size=64))
+        genomes = _genomes((3, 4), 12, seed=1)
+
+        def leaves(gs, pop):
+            gs, _ = pad_population(gs, pop)
+            model = _port_model((3, 4), (16, 32), pop, (32, 32, 3), 64, 10, dtype, False)
+            _load(model, port_cnn._init_population_params(model, 1, 0, port_cnn._genome_hashes(gs)),
+                  fold=0)
+            loss = port_cnn._per_genome_loss(model(x, _port_masks(gs, (3, 4))), y).sum()
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            return {n: g[0] for (n, _), g in zip(model.named_parameters(), grads)}
+
+        threads = torch.get_num_threads()
+        torch.set_num_threads(4)  # where the grouped conv's reduction split by P
+        try:
+            alone, in_batch = leaves(genomes[:1], 2), leaves(genomes, 12)
+        finally:
+            torch.set_num_threads(threads)
+        differ = [n for n in alone if not torch.equal(alone[n], in_batch[n])]
+        assert not differ
+
+
+class TestFoldParallel:
+    """``fold_parallel=True``: the reference's fused-folds knob, which the
+    port accepts and runs fold after fold, as without it."""
+
+    @pytest.mark.parametrize("microbatch", [1, 2])
+    def test_equals_segmented_bit_for_bit(self, separable_data, microbatch):
+        x, y = separable_data
+        genomes = _genomes((3,), 3, seed=11)
+        cfg = dict(FAST, kfold=3, dropout_rate=0.5, microbatch=microbatch)
+        seg = GeneticCnnModel.cross_validate_population(x, y, genomes, **cfg)
+        fused = GeneticCnnModel.cross_validate_population(x, y, genomes, **cfg, fold_parallel=True)
+        np.testing.assert_array_equal(fused, seg)
+
+    def test_matches_reference_fold_parallel(self, separable_data, monkeypatch):
+        x, y = separable_data
+        genomes = [{"S_1": (1, 0, 1)}, {"S_1": (0, 1, 0)}, {"S_1": (1, 1, 1)}, {"S_1": (0, 0, 0)}]
+        cfg = dict(FAST, dropout_rate=0.0, fold_parallel=True)
+        ref_cfg = {k: v for k, v in cfg.items() if k != "mesh"}
+        want = ref_cnn.GeneticCnnModel.cross_validate_population(x, y, genomes, **ref_cfg)
+        _inject_reference_init(monkeypatch, {4: genomes}, cfg, (8, 8, 1))
+        got = GeneticCnnModel.cross_validate_population(x, y, genomes, **cfg)
+        # As for the segmented executor: same init and batches, float32 sums
+        # in other orders may flip two validation samples of 96 per fold.
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=2 / 192 + 1e-6)
+
+
+class TestTrainAndScore:
+    """The holdout evaluation: train on all of x_train, score on x_test."""
+
+    def test_matches_reference_with_injected_init(self, separable_data, monkeypatch):
+        x, y = separable_data
+        genomes = [{"S_1": (1, 0, 1)}, {"S_1": (0, 1, 0)}, {"S_1": (1, 1, 1)}]
+        cfg = dict(FAST, dropout_rate=0.0, epochs=(1, 1), learning_rate=(0.05, 0.02))
+        ref_cfg = {k: v for k, v in cfg.items() if k != "mesh"}
+        args = (x[:128], y[:128], x[128:], y[128:], genomes)
+        want = ref_cnn.GeneticCnnModel.train_and_score(*args, **ref_cfg)
+        seen_domains = []
+        _inject_reference_init(monkeypatch, {4: genomes + genomes[-1:]}, cfg, (8, 8, 1))
+        real_init = port_cnn._init_population_params
+
+        def spy(model, kfold, seed, hashes, domain=0):
+            seen_domains.append(domain)
+            return real_init(model, kfold, seed, hashes, domain)
+
+        monkeypatch.setattr(port_cnn, "_init_population_params", spy)
+        got = GeneticCnnModel.train_and_score(*args, **cfg)
+        assert got.shape == (3,) and seen_domains == [port_cnn._HOLDOUT_DOMAIN]
+        # Same init (the reference's own holdout-domain draws), same batch
+        # order, no dropout, float32: two of the 64 test samples may flip.
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=2 / 64 + 1e-6)
+
+    def test_holdout_streams_differ_from_cv_streams(self):
+        hashes = port_cnn._genome_hashes([{"S_1": (1, 0, 1)}, {"S_1": (0, 1, 1)}])
+        model = _port_model((3,), (4,), 2, (8, 8, 1), 8, 2, "float32", False)
+        cv = port_cnn._init_population_params(model, 1, 0, hashes)
+        holdout = port_cnn._init_population_params(model, 1, 0, hashes,
+                                                   domain=port_cnn._HOLDOUT_DOMAIN)
+        assert not torch.equal(cv["stage0_entry.weight"], holdout["stage0_entry.weight"])
+        draw = lambda gens: [float(torch.rand(1, generator=g)) for g in gens]
+        cv_gens = port_cnn._dropout_generators(0, 0, hashes, CPU)
+        ho_gens = port_cnn._dropout_generators(0, 0, hashes, CPU, port_cnn._HOLDOUT_DOMAIN)
+        assert set(draw(cv_gens)).isdisjoint(draw(ho_gens))
+
+    def test_fitness_reps_and_purity(self, separable_data):
+        x, y = separable_data
+        args = (x[:128], y[:128], x[128:], y[128:])
+        a, b = {"S_1": (1, 0, 1)}, {"S_1": (0, 1, 0)}
+        cfg = dict(FAST, epochs=(1,), dropout_rate=0.5)
+        batch = GeneticCnnModel.train_and_score(*args, [a, b], **cfg)
+        alone = GeneticCnnModel.train_and_score(*args, [b], **cfg)
+        assert alone[0] == batch[1]
+        r1 = GeneticCnnModel.train_and_score(*args, [a, b], **{**cfg, "seed": 7919})
+        both = GeneticCnnModel.train_and_score(*args, [a, b], **{**cfg, "fitness_reps": 2})
+        np.testing.assert_allclose(both, (batch.astype(np.float64) + r1) / 2, rtol=0, atol=1e-7)
+
+
+class TestWarmStartBank:
+    """The multi-fidelity warm-start bank (``warm_start=True``)."""
+
+    @pytest.fixture(autouse=True)
+    def _empty_banks(self):
+        port_cnn._WARM_BANK.clear()
+        ref_cnn._WARM_BANK.clear()
+        yield
+        port_cnn._WARM_BANK.clear()
+        ref_cnn._WARM_BANK.clear()
+
+    def test_deposited_and_overlaid_params_match_reference(self, separable_data, monkeypatch):
+        x, y = separable_data
+        genomes = [{"S_1": (1, 0, 1)}, {"S_1": (0, 1, 1)}, {"S_1": (1, 1, 1)}]
+        cfg = dict(FAST, dropout_rate=0.0, warm_start=True)
+        # The reference banks only without a device mesh (one device).
+        ref_cnn.GeneticCnnModel.cross_validate_population(x, y, genomes, **{**cfg, "mesh": None})
+        _inject_reference_init(monkeypatch, {4: genomes + genomes[-1:]}, cfg, (8, 8, 1))
+        GeneticCnnModel.cross_validate_population(x, y, genomes, **cfg)
+        hashes = port_cnn._genome_hashes(genomes)
+        keys = [(int(hi), int(lo)) for hi, lo in hashes]
+        assert list(port_cnn._WARM_BANK) == keys == list(ref_cnn._WARM_BANK)
+        # The banks: each genome's fold-0 params after 6 float32 SGD steps
+        # from the same init and batches; summation order differs by a few
+        # ulps per step, which momentum carries forward.
+        for key in keys:
+            want = params_from_reference(jax.tree.map(np.asarray, ref_cnn._WARM_BANK[key]),
+                                         (3,), (8, 8, 1))
+            for name, leaf in port_cnn._WARM_BANK[key].items():
+                np.testing.assert_allclose(leaf, want[name], rtol=1e-4, atol=1e-5, err_msg=name)
+        # The overlay on a fresh 2-fold init of the banked genomes plus one
+        # the bank has never seen: banked slots take their bank entry on both
+        # folds, the other slot keeps its fresh init.
+        fresh_genomes = [genomes[1], {"S_1": (0, 0, 1)}]
+        ref_model = _ref_model((3,), (8,), 32, 4, "float32", False)
+        fresh = _ref_init(ref_model, fresh_genomes, (3,), (8, 8, 1), kfold=2)
+        fresh_hashes = port_cnn._genome_hashes(fresh_genomes)
+        ref_out, ref_warmed = ref_cnn._warm_start_overlay(
+            jax.tree.map(jnp.asarray, fresh), ref_cnn._genome_hashes(fresh_genomes))
+        port_in = {k: torch.as_tensor(np.array(v)) for k, v in
+                   params_from_reference(fresh, (3,), (8, 8, 1)).items()}
+        port_out, port_warmed = port_cnn._warm_start_overlay(port_in, fresh_hashes)
+        assert port_warmed == ref_warmed == 1
+        want = params_from_reference(jax.tree.map(np.asarray, ref_out), (3,), (8, 8, 1))
+        for name, leaf in port_out.items():
+            np.testing.assert_allclose(leaf[:, 0].numpy(), want[name][:, 0], rtol=1e-4,
+                                       atol=1e-5, err_msg=name)
+            np.testing.assert_array_equal(leaf[:, 1].numpy(), want[name][:, 1], err_msg=name)
+
+    def test_off_by_default_and_with_fold_parallel(self, separable_data):
+        x, y = separable_data
+        GeneticCnnModel.cross_validate_population(x, y, [{"S_1": (1, 0, 1)}], **FAST)
+        GeneticCnnModel.cross_validate_population(
+            x, y, [{"S_1": (1, 0, 1)}], **FAST, warm_start=True, fold_parallel=True)
+        assert not port_cnn._WARM_BANK
+
+    def test_inherit_moves_fitness_and_skips_shape_mismatch(self, separable_data):
+        x, y = separable_data
+        genomes = [{"S_1": (1, 0, 1)}, {"S_1": (0, 1, 1)}]
+        cfg = dict(FAST, epochs=(1,), warm_start=True)
+        GeneticCnnModel.cross_validate_population(x, y, genomes, **cfg)
+        assert len(port_cnn._WARM_BANK) == 2
+        longer = {**cfg, "epochs": (2,)}
+        warm = GeneticCnnModel.cross_validate_population(x, y, genomes, **longer)
+        port_cnn._WARM_BANK.clear()
+        cold = GeneticCnnModel.cross_validate_population(x, y, genomes, **longer)
+        assert not np.array_equal(warm, cold)
+        # Another width: every banked leaf mismatches, fresh inits run.
+        wider = GeneticCnnModel.cross_validate_population(
+            x, y, genomes[:1], **{**cfg, "kernels_per_layer": (16,), "dense_units": 16})
+        assert wider.shape == (1,)
+
+
 class TestConfig:
     """``_normalize_config``: the same 25 keys, defaults and errors."""
 
@@ -460,9 +661,15 @@ class TestConfig:
 
     @pytest.mark.parametrize("knob", [dict(fold_parallel=True), dict(warm_start=True)])
     def test_unported_executors_refuse(self, knob, separable_data):
+        """Both executors' knobs are ported; with either on, the routing that
+        is not (a budget that puts the genome off the wide-pop path) still
+        refuses instead of running something else, in both entry points."""
         x, y = separable_data
+        big = {**FAST, **knob, "device_budget": 200_000}
         with pytest.raises(NotImplementedError):
-            GeneticCnnModel.cross_validate_population(x, y, [{"S_1": (1, 0, 1)}], **FAST, **knob)
+            GeneticCnnModel.cross_validate_population(x, y, [{"S_1": (1, 0, 1)}], **big)
+        with pytest.raises(NotImplementedError):
+            GeneticCnnModel.train_and_score(x, y, x[:32], y[:32], [{"S_1": (1, 0, 1)}], **big)
 
     def test_big_genome_budget_refuses(self, separable_data):
         x, y = separable_data

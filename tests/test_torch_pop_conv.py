@@ -1,0 +1,233 @@
+"""The port's population-batched 3×3 conv (``gentun_tpu_torch.ops.pop_conv``) on the CPU.
+
+On a CPU tensor the wrappers compute with the plain PyTorch version, so these
+tests hold that version, and :class:`PopConv3x3Fn`'s backward (the input
+gradient as the forward on ``dY`` with the weights turned 180°, the weight
+and bias gradients as the weight-gradient wrapper), against the JAX
+package's conv under ``vmap`` and ``jax.vjp``, with the same numpy inputs.
+The kernels themselves run only on the card (``chip_smoke.py`` holds each
+against this plain version there).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from gentun_tpu_torch.ops import _build
+from gentun_tpu_torch.ops import pop_conv
+from gentun_tpu_torch.ops.pop_conv import (
+    PopConv3x3Fn,
+    pop_conv3x3_reference,
+    pop_conv3x3_wgrad,
+)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's torch work, restored after.
+
+    The port's plain conv runs one small ``F.conv2d`` per slot; with several
+    test workers on the same cores, each of those calls' thread-pool
+    barriers waits on descheduled threads (on an 8-core host beside 7 busy
+    processes, two small fitness calls took 28.6 s with 8 threads and 0.35 s
+    with 1).  Nothing these tests compare depends on the thread count, except
+    where a test sets its own.
+    """
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
+def _inputs(rng, slots, c, f, b, h, w, shared=False, dtype=np.float32):
+    """x ((B, S·C, H, W), or (B, C, H, W) when ``shared``), weight, bias, dy."""
+    x_shape = (b, c, h, w) if shared else (b, slots * c, h, w)
+    x = rng.normal(size=x_shape).astype(dtype)
+    wt = (rng.normal(size=(slots, f, c, 3, 3)) / np.sqrt(9 * c)).astype(dtype)
+    bias = rng.normal(size=(slots, f)).astype(dtype)
+    dy = rng.normal(size=(b, slots * f, h, w)).astype(dtype)
+    return x, wt, bias, dy
+
+
+def _jax_conv(x, wt, bias, dy, shared):
+    """y, dx, dW, db from the JAX package's arithmetic: ``lax.conv`` SAME with
+    bias per slot under ``vmap``, differentiated with ``jax.vjp``."""
+    slots, f, c = wt.shape[:3]
+    if shared:
+        xs = jnp.repeat(jnp.asarray(x)[None], slots, axis=0)  # (S, B, C, H, W)
+    else:
+        b, _, h, w = x.shape
+        xs = jnp.asarray(x).reshape(b, slots, c, h, w).transpose(1, 0, 2, 3, 4)
+
+    def one(xi, wi, bi):
+        y = jax.lax.conv_general_dilated(
+            xi, wi, (1, 1), "SAME", dimension_numbers=("NCHW", "OIHW", "NCHW"),
+            precision=jax.lax.Precision.HIGHEST)
+        return y + bi[None, :, None, None]
+
+    def full(xs_, w_, b_):
+        y = jax.vmap(one)(xs_, w_, b_)  # (S, B, F, H, W)
+        return y.transpose(1, 0, 2, 3, 4).reshape(y.shape[1], slots * f, *y.shape[3:])
+
+    y, vjp = jax.vjp(full, xs, jnp.asarray(wt), jnp.asarray(bias))
+    dxs, dw, db = vjp(jnp.asarray(dy))
+    if shared:
+        dx = None
+    else:
+        dx = np.asarray(dxs).transpose(1, 0, 2, 3, 4).reshape(x.shape)
+    return np.asarray(y), dx, np.asarray(dw), np.asarray(db)
+
+
+CASES = {
+    # name: (slots, C, F, B, H, W, shared input)
+    "C=3 7x7": (3, 3, 4, 2, 7, 7, False),
+    "C=1 3x3": (2, 1, 5, 3, 3, 3, False),
+    "shared C=3 7x7": (3, 3, 4, 2, 7, 7, True),
+    "shared C=1 3x3": (4, 1, 3, 2, 3, 3, True),
+    "shared C=4 F=2 6x9": (4, 4, 2, 2, 6, 9, True),
+    "C=5 F=6 8x5": (2, 5, 6, 2, 8, 5, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_conv_matches_jax_reference(case):
+    slots, c, f, b, h, w, shared = CASES[case]
+    x, wt, bias, dy = _inputs(np.random.default_rng(len(case)), slots, c, f, b, h, w, shared)
+    want_y, want_dx, want_dw, want_db = _jax_conv(x, wt, bias, dy, shared)
+
+    xt = torch.tensor(x, requires_grad=not shared)
+    wt_t = torch.tensor(wt, requires_grad=True)
+    bt = torch.tensor(bias, requires_grad=True)
+    y = PopConv3x3Fn.apply(xt, wt_t, bt, shared)
+    inputs = [wt_t, bt] if shared else [xt, wt_t, bt]
+    grads = torch.autograd.grad(y, inputs, torch.tensor(dy))
+    dx = None if shared else grads[0]
+    dw, db = grads[-2:]
+
+    # float32 on both sides, sums of at most 9·C products per output and
+    # B·H·W per weight, taken in other orders: 1e-5 of each result's scale.
+    def close(got, want, what):
+        scale = max(float(np.abs(want).max()), 1e-30)
+        err = float(np.abs(got.detach().numpy() - want).max())
+        assert err <= 1e-5 * scale, f"{what}: {err:.3e} of scale {scale:.3e}"
+
+    close(y, want_y, "forward")
+    close(dw, want_dw, "weight gradient")
+    close(db, want_db, "bias gradient")
+    if not shared:
+        close(dx, want_dx, "input gradient (flipped-weight forward)")
+    # The plain forward is the same function as the Function's forward.
+    torch.testing.assert_close(
+        pop_conv3x3_reference(torch.tensor(x), torch.tensor(wt), torch.tensor(bias), shared),
+        y.detach(), rtol=0, atol=0)
+
+
+def _embed(rng, slot, slots, xp, wp, bp, dyp, shared):
+    """Slot ``slot`` of an S-slot problem holds (xp, wp, bp, dyp); the other
+    slots hold other random values."""
+    c, f = wp.shape[1], wp.shape[0]
+    b, _, h, w = dyp.shape
+    x = rng.normal(size=(b, c, h, w) if shared else (b, slots, c, h, w)).astype(np.float32)
+    if shared:
+        x[:] = xp
+    else:
+        x[:, slot] = xp
+    wt = rng.normal(size=(slots, f, c, 3, 3)).astype(np.float32)
+    bias = rng.normal(size=(slots, f)).astype(np.float32)
+    dy = rng.normal(size=(b, slots, f, h, w)).astype(np.float32)
+    wt[slot], bias[slot], dy[:, slot] = wp, bp, dyp
+    if not shared:
+        x = x.reshape(b, slots * c, h, w)
+    return x, wt, bias, dy.reshape(b, slots * f, h, w)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["own input", "shared input"])
+def test_plain_conv_slot_is_bit_equal_at_any_width(shared):
+    """A slot's output and gradients are the same bits at S = 1, 2 and 5 and
+    in slots 0 and 3: nothing the plain version sums depends on S or on the
+    other slots."""
+    rng = np.random.default_rng(7)
+    c, f, b, h, w = 6, 8, 4, 12, 12
+    xp = rng.normal(size=(b, c, h, w)).astype(np.float32)
+    wp = rng.normal(size=(f, c, 3, 3)).astype(np.float32)
+    bp = rng.normal(size=(f,)).astype(np.float32)
+    dyp = rng.normal(size=(b, f, h, w)).astype(np.float32)
+    seen = []
+    for slots, slot in ((1, 0), (2, 0), (5, 0), (5, 3)):
+        x, wt, bias, dy = (torch.tensor(a) for a in
+                           _embed(rng, slot, slots, xp, wp, bp, dyp, shared))
+        x.requires_grad_(not shared)
+        wt.requires_grad_(True)
+        bias.requires_grad_(True)
+        y = PopConv3x3Fn.apply(x, wt, bias, shared)
+        grads = torch.autograd.grad(y, [wt, bias] if shared else [x, wt, bias], dy)
+        one = [y.view(b, slots, f, h, w)[:, slot], grads[-2][slot], grads[-1][slot]]
+        if not shared:
+            one.append(grads[0].view(b, slots, c, h, w)[:, slot])
+        seen.append(one)
+    for other in seen[1:]:
+        for a, o in zip(seen[0], other):
+            assert torch.equal(a, o)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["own input", "shared input"])
+def test_pop_conv_fn_gradcheck_float64(shared):
+    rng = np.random.default_rng(3)
+    x, wt, bias, _ = _inputs(rng, 2, 2, 3, 2, 4, 5, shared=shared, dtype=np.float64)
+    x = torch.tensor(x, requires_grad=not shared)
+    wt = torch.tensor(wt, requires_grad=True)
+    bias = torch.tensor(bias, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda xx, ww, bb: PopConv3x3Fn.apply(xx, ww, bb, shared),
+        (x, wt, bias), eps=1e-6, atol=1e-7)
+
+
+def test_cpu_calls_launch_nothing():
+    """The launch counts move only where a kernel is launched: a CPU call
+    computes with the plain version and counts nothing."""
+    before = dict(pop_conv.LAUNCHES)
+    rng = np.random.default_rng(0)
+    x, wt, bias, dy = (torch.tensor(a) for a in _inputs(rng, 2, 3, 4, 2, 5, 5))
+    pop_conv.pop_conv3x3_fwd(x, wt, bias)
+    pop_conv3x3_wgrad(x, dy, wt.shape)
+    assert pop_conv.LAUNCHES == before
+
+
+def test_wrappers_refuse_shapes_the_kernels_do_not_take():
+    rng = np.random.default_rng(0)
+    x, wt, bias, dy = (torch.tensor(a) for a in _inputs(rng, 2, 3, 4, 2, 5, 5))
+    with pytest.raises(ValueError):
+        pop_conv.pop_conv3x3_fwd(x[:, :5], wt, bias)  # channels are not S·C
+    with pytest.raises(ValueError):
+        pop_conv.pop_conv3x3_fwd(x, wt, bias, True)  # a shared input has C, not S·C, channels
+    with pytest.raises(ValueError):
+        pop_conv.pop_conv3x3_fwd(x, wt[..., :2], bias)  # not 3×3
+    with pytest.raises(ValueError):
+        pop_conv3x3_wgrad(x, dy[:, :4], wt.shape)
+    with pytest.raises(ValueError):  # a shared input is data: no gradient
+        PopConv3x3Fn.apply(x[:, :3].contiguous().requires_grad_(), wt, bias, True)
+
+
+@pytest.mark.parametrize("wrapper", ["fwd", "wgrad"])
+def test_wrappers_refuse_more_slots_than_the_grid_takes(wrapper):
+    """The slot is the kernels' grid z axis (at most 65,535); the wrappers
+    refuse one slot more on the CPU as on the card, before any work."""
+    slots = pop_conv.MAX_SLOTS + 1
+    x = torch.zeros(1, slots, 1, 1)
+    with pytest.raises(ValueError, match="at most 65535"):
+        if wrapper == "fwd":
+            pop_conv.pop_conv3x3_fwd(x, torch.zeros(slots, 1, 1, 3, 3), torch.zeros(slots, 1))
+        else:
+            pop_conv3x3_wgrad(x, torch.zeros(1, slots, 1, 1), (slots, 1, 1, 3, 3))
+
+
+def test_build_is_keyed_by_the_sources_and_needs_no_compiler_to_import():
+    path = _build.library_path()
+    assert path.parent == _build.BUILD_DIR and path.name.startswith("libgentun_kernels_")
+    assert path == _build.library_path()
+    names = [p.name for p in _build._sources()]
+    assert "pop_conv3x3.cu" in names
+    assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
