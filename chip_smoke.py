@@ -15,11 +15,16 @@ K. Kernels: both kernels (``pop_conv3x3_fwd``, also run as the input
    gradient, and ``pop_conv3x3_wgrad``) at every conv shape of config #2's
    train step (pop 20, batch 256) and eval forward (batch 1,024), in bf16
    and float32, at config #1's shapes, in float64 and at 600 slots of batch
-   512 (more slots × splits than a grid's z axis takes), each held against
-   its plain PyTorch version on the same
-   inputs within the tolerance stated in ``TOLERANCE``; each config #2
+   512 (more slots × splits than a grid's z axis takes), and the forward
+   kernel at the edge shapes of ``EDGE_SHAPES`` (rows that are not whole
+   16-byte chunks, C=1 and C=3 with a shared input, F=20 and 50, partial
+   tiles, 600 slots), each held against its plain PyTorch version on the
+   same inputs within the tolerance stated in ``TOLERANCE``; each config #2
    call's kernel, plain, cuDNN grouped-conv (the library yardstick, which the
-   port never calls) and bound times.
+   port never calls) and bound times.  Then the forward kernel's purity
+   witness, a gate: at each config #2 conv, as forward and input gradient,
+   bf16 and float32, slots 0 and 7 of an S=20 call give the same bits alone
+   (S=1) and as slot 1 of an S=3 call.
 L. Step 0's leaf check: one genome's grad leaves after one train step's
    backward in slot 0 of a P=2 and of the P=20 model, bf16 and float32,
    must be the same bits; the differing leaves are printed.
@@ -198,27 +203,28 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
 
 
 def conv_case(torch, dtype: str, role: str, shared: bool, slots: int,
-              c: int, f: int, b: int, h: int, timed: bool):
+              c: int, f: int, b: int, h: int, timed: bool, width=None):
     """One kernel call against its plain version (and cuDNN's grouped conv
-    as the library yardstick) on the card.  ``role`` is ``fwd``, ``dgrad``
-    (the forward kernel on dY with the turned weights) or ``wgrad``.
-    Returns the check's numbers; the phase fails if the error is over the
-    tolerance."""
+    as the library yardstick) on the card, on h×h images (h×width when
+    ``width`` is given).  ``role`` is ``fwd``, ``dgrad`` (the forward kernel
+    on dY with the turned weights) or ``wgrad``.  Returns the check's
+    numbers; the phase fails if the error is over the tolerance."""
     import torch.nn.functional as F
     from gentun_tpu_torch.ops import pop_conv
 
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(slots * 1000 + c * 10 + f)
     rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=torch.float32).to(dt)
-    x = rnd(b, c, h, h) if shared else rnd(b, slots * c, h, h)
+    wd = h if width is None else width
+    x = rnd(b, c, h, wd) if shared else rnd(b, slots * c, h, wd)
     w = (rnd(slots, f, c, 3, 3).float() / (9 * c) ** 0.5).to(dt)
     bias = rnd(slots, f)
-    dy = rnd(b, slots * f, h, h)
+    dy = rnd(b, slots * f, h, wd)
     if role == "wgrad":  # a batch-mean loss's scale: dW and db of order 1
-        dy = (dy.float() / (b * h * h) ** 0.5).to(dt)
+        dy = (dy.float() / (b * h * wd) ** 0.5).to(dt)
     lib_groups = 1 if shared else slots
     esize = x.element_size()
-    flops = 2.0 * b * h * h * 9 * c * f * slots
+    flops = 2.0 * b * h * wd * 9 * c * f * slots
     if role == "fwd":
         kernel = lambda: pop_conv.pop_conv3x3_fwd(x, w, bias, shared)
         plain = lambda: pop_conv.pop_conv3x3_reference(x, w, bias, shared)
@@ -239,7 +245,7 @@ def conv_case(torch, dtype: str, role: str, shared: bool, slots: int,
         library = lambda: torch.ops.aten.convolution_backward(
             dy, x, w.view(slots * f, c, 3, 3), [slots * f], [1, 1], [1, 1], [1, 1],
             False, [0, 0], lib_groups, [False, True, True])[1:]
-        flops += 1.0 * b * h * h * f * slots
+        flops += 1.0 * b * h * wd * f * slots
         nbytes = (x.numel() + dy.numel() + w.numel() + bias.numel()) * esize
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False  # the plain version and the library in IEEE float32
@@ -250,7 +256,7 @@ def conv_case(torch, dtype: str, role: str, shared: bool, slots: int,
         err = max(float((a.double() - r.double()).abs().max()) for a, r in pairs)
         scale = max(float(r.double().abs().max()) for _, r in pairs)
         tol = TOLERANCE[dtype, role]
-        out = {"dtype": dtype, "role": role, "shape": [slots, c, f, b, h, h, int(shared)],
+        out = {"dtype": dtype, "role": role, "shape": [slots, c, f, b, h, wd, int(shared)],
                "max_abs_err": err, "rel_err": err / max(scale, 1e-300), "tol": tol}
         if timed:
             out["ms"] = cuda_ms(torch, kernel)
@@ -266,12 +272,75 @@ def conv_case(torch, dtype: str, role: str, shared: bool, slots: int,
     return out
 
 
+#: Edge shapes of the forward kernel, each held against the plain version in
+#: bf16 and float32, as the forward and (own input) the input gradient:
+#: (slots, C, F, B, H, W, shared input).
+EDGE_SHAPES = [
+    (4, 16, 24, 9, 7, 7, False),     # 7-wide rows: 14 bytes, not 16-byte chunks
+    (3, 8, 8, 5, 5, 5, False),       # 5-wide rows
+    (5, 1, 20, 7, 28, 28, True),     # C=1, shared input, F=20
+    (5, 3, 32, 3, 32, 32, True),     # C=3, shared input
+    (4, 20, 50, 6, 14, 14, False),   # F=50
+    (4, 50, 20, 6, 14, 14, False),   # C=50, F=20
+    (3, 64, 128, 3, 8, 8, False),    # 3 images of 8x8, fewer than a tile holds
+    (3, 128, 64, 3, 8, 8, False),    # the same in chunks of 32 channels (C >= 128)
+    (2, 32, 32, 2, 24, 24, False),   # 24 rows in tiles of 10: B·H·W not whole tiles
+    (2, 136, 20, 3, 7, 7, False),    # C >= 128 on narrow rows, a partial last chunk
+    (2, 8, 8, 1, 3, 300, False),     # rows wider than a tile
+    (600, 8, 16, 8, 16, 16, False),  # 600 slots
+]
+
+
+def kernel_purity(torch):
+    """The forward kernel's own purity witness: for each conv of config #2's
+    train step, as the forward and (own input) as the input gradient, in bf16
+    and float32, slots 0 and 7 of an S=20 call run again alone (S=1) and as
+    slot 1 of an S=3 call must give the same bits.  Returns the rows; the
+    phase fails on any difference."""
+    from gentun_tpu_torch.ops import pop_conv
+
+    dev, b, rows = torch.device("cuda"), 256, []
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for name, shared, c, f, h, _ in conv_layers(NODES, FILTERS, 32, 3):
+            for role in ("fwd",) if shared else ("fwd", "dgrad"):
+                cin, cout = (c, f) if role == "fwd" else (f, c)
+                g = torch.Generator(device=dev).manual_seed(cin * 1000 + cout)
+                rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev).to(dt)
+                x = rnd(b, cin, h, h) if shared else rnd(b, POP * cin, h, h)
+                wt = rnd(POP, cout, cin, 3, 3)
+                bias = rnd(POP, cout) if role == "fwd" else None
+                y = pop_conv.pop_conv3x3_fwd(x, wt, bias, shared).view(b, POP, cout, h, h)
+                differ = []
+                for slot in (0, 7):
+                    xs = x if shared else x.view(b, POP, cin, h, h)[:, slot].contiguous()
+                    bs = None if bias is None else bias[slot:slot + 1]
+                    alone = pop_conv.pop_conv3x3_fwd(xs, wt[slot:slot + 1], bs, shared)
+                    x3 = xs if shared else torch.stack(
+                        [rnd(b, cin, h, h), xs, rnd(b, cin, h, h)], 1).view(b, 3 * cin, h, h)
+                    w3 = torch.cat([rnd(1, cout, cin, 3, 3), wt[slot:slot + 1],
+                                    rnd(1, cout, cin, 3, 3)])
+                    b3 = None if bias is None else torch.cat([rnd(1, cout), bs, rnd(1, cout)])
+                    third = pop_conv.pop_conv3x3_fwd(x3, w3, b3, shared).view(b, 3, cout, h, h)
+                    if not torch.equal(alone, y[:, slot]):
+                        differ.append(f"slot {slot} alone")
+                    if not torch.equal(third[:, 1], y[:, slot]):
+                        differ.append(f"slot {slot} as slot 1 of 3")
+                rows.append({"dtype": dtype, "role": role, "layer": name, "differ": differ})
+                log(f"[K] purity {dtype:8s} {role:5s} {name:12s} C={cin:3d} F={cout:3d}: slots 0 "
+                    f"and 7 of S={POP} vs alone (S=1) and as slot 1 of S=3: "
+                    f"{'same bits' if not differ else 'DIFFER ' + ', '.join(differ)}")
+                check(not differ, f"forward kernel purity, {dtype} {role} {name}: {differ}")
+    return rows
+
+
 def phase_kernels(torch):
     """Every kernel at every conv shape of config #2's train step (pop 20,
     batch 256) and eval forward (batch 1,024), in bf16 and float32, and at
     config #1's shapes (pop 10, batch 128, 28×28 and 14×14, channel counts
     that are not multiples of 16), each held against its plain version;
-    float64 once.
+    float64 once; the forward at ``EDGE_SHAPES``; then
+    :func:`kernel_purity`.
     Returns per-step totals of the timed bf16 config #2 calls."""
     rows = []
     per_step = {"pop_conv3x3_fwd": {}, "pop_conv3x3_wgrad": {}}
@@ -292,6 +361,9 @@ def phase_kernels(torch):
                     for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ops_ms",
                                 "bound_bytes_ms"):
                         tot[key] = tot.get(key, 0.0) + n * r[key]
+                    by = "bound_{}_calls_ms".format(
+                        "bytes" if r["bound_bytes_ms"] >= r["bound_ops_ms"] else "ops")
+                    tot[by] = tot.get(by, 0.0) + n * r["bound_ms"]
                     tot["max_abs_err"] = max(tot.get("max_abs_err", 0.0), r["max_abs_err"])
                     tot["calls"] = tot.get("calls", 0) + n
             if dtype == "bfloat16":
@@ -317,10 +389,19 @@ def phase_kernels(torch):
     rows.append(r)
     log(f"[K] bfloat16 wgrad S=600 C=3 F=4 B=512 32x32 (600 x 128 splits): err "
         f"{r['rel_err']:.2e} (tol {r['tol']:.0e})")
+    for dtype in ("bfloat16", "float32"):
+        for slots, c, f, b, h, wd, shared in EDGE_SHAPES:
+            for role in ("fwd",) if shared else ("fwd", "dgrad"):
+                r = conv_case(torch, dtype, role, shared, slots, c, f, b, h, False, width=wd)
+                rows.append(r)
+                log(f"[K] edge {dtype} {role} S={slots} C={c} F={f} B={b} {h}x{wd}"
+                    f"{' shared' if shared else ''}: err {r['rel_err']:.2e} (tol {r['tol']:.0e})")
+    rows.extend(kernel_purity(torch))
     for kname, tot in per_step.items():
         log(f"[K] {kname} per config #2 train step (bf16, {tot['calls']} calls): kernel "
             f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f}, cuDNN {tot['library_ms']:.3f}, "
-            f"bound {tot['bound_ms']:.3f} ms")
+            f"bound {tot['bound_ms']:.3f} ms ({tot.get('bound_bytes_calls_ms', 0.0):.3f} in calls "
+            f"bound by bytes, {tot.get('bound_ops_calls_ms', 0.0):.3f} by operations)")
     return per_step, rows
 
 

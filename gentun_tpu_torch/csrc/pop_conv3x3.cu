@@ -23,22 +23,35 @@
 // partial sums, and a second pass adds the splits in order.
 //
 // Layouts (the port's, NCHW): activations (B, S*C, H, W); weights (S, F, C, 3, 3)
-// contiguous, read as an (F, C*9) matrix per slot; bias (S, F).  A shared
-// input (the stage-0 image batch, (B, C, H, W)) is read in place by every
-// slot: its slot stride in XAddr is 0.
+// contiguous (the bf16 forward takes them tap-major, see fwd_hop); bias
+// (S, F).  A shared input (the stage-0 image batch, (B, C, H, W)) is read in
+// place by every slot: its slot stride in XAddr is 0.
 //
-// What bounds them (NVIDIA H100 SXM data sheet, 700 W): at config #2 a node conv does
-// 2*B*H*W*9*C*F flops on B*H*W*(C+F) activations, about 15 flops a byte in
-// bf16 at stage 0 and 60 at stage 2, so against the card's 989 TFLOP/s and
-// 3.35 TB/s (295 flops a byte) every layer is bound by memory when run
-// perfectly.  These first kernels are far from either bound: they are
-// implicit GEMMs with a tile in shared memory, no pipelining of the loads and
-// WMMA (mma.sync) for bf16, so they are bound by the latency of their global
-// loads and the im2col index arithmetic.  What the design does about the
-// bound: each input tile is read once into shared memory per CTA and reused
-// across BM output channels (forward) or BN weight columns (weight gradient),
-// and activations stay NCHW, so no layout transposes run around the kernel.
-// float32 (IEEE, no TF32) and float64 run as plain FMA loops.
+// What bounds them (NVIDIA H100 SXM data sheet, 700 W: 989 TFLOP/s bf16,
+// 3.35 TB/s, so 295 flops a byte at the ridge): per pixel and slot a conv
+// does 2*9*C*F flops on (C+F)*2 bytes of bf16 activations, 9*C*F/(C+F) flops
+// a byte: 144 for config #2's stage-0 node conv (C = F = 32), 288 at stage 1
+// (64) and 576 at stage 2 (128).  So stage 0 is bound by memory, stage 1
+// sits at the ridge and stage 2 is bound by the tensor cores; the stage-0
+// entry conv (C = 3) is bound by writing its output.
+//
+// The bf16 forward (fwd_hop below, which also runs the input gradient and
+// eval) keeps a halo tile and the chunk's weights in shared memory, feeds
+// mma.sync from them with ldmatrix and pipelines the next chunk's loads
+// under the current chunk's MMAs.  ptxas (sm_90a): 128 registers for the
+// configuration of 32 channels x 256 pixels (158 on the narrow-row path),
+// 175 for 64 x 256 (220 narrow), no spills; 61,568 bytes of shared memory
+// per CTA at config #2's stage 0, 61,056 at stage 1, 71,168 at the stage-2
+// entry, 158,720 at the stage-2 node (C = 128, chunks of 32).  Measured
+// (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase K): the stage-0 node
+// conv at 0.29 of its memory bound, the stage-2 node at 0.23 of its
+// tensor-core bound; what bounds it now is the per-CTA prologue (first
+// chunk's loads, not overlapped) and, at stage 2, ldmatrix traffic against
+// mma.sync's rate.  The float32 and float64 forward and both
+// weight-gradient kernels are the first design: implicit GEMMs with a tile
+// in shared memory, no pipelining, im2col index arithmetic per element
+// (WMMA for bf16, plain FMA loops for float32, IEEE, and float64), bound by
+// the latency of their global loads.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -101,92 +114,392 @@ __device__ __forceinline__ T im2col(const T* __restrict__ ximg, int k, int h, in
 // K = C*9, each CTA one BM x BN tile with the whole K loop in order.
 // ---------------------------------------------------------------------------
 
-namespace fwd_tc {  // bf16 on the tensor cores (WMMA 16x16x16, float accumulator)
-constexpr int BM = 64, BN = 128, BK = 32, WM = 32, WN = 32;
-constexpr int WARPS_N = BN / WN, NT = (BM / WM) * WARPS_N * 32;
-constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
-constexpr int SMEM_AB = (BM * LDA + BK * LDB) * 2, SMEM_C = BM * LDC * 4;
-constexpr int SMEM = SMEM_AB > SMEM_C ? SMEM_AB : SMEM_C;
-}  // namespace fwd_tc
+// bf16: halo tiles in shared memory and mma.sync on the tensor cores.
+//
+// A CTA computes one slot s, BM output channels and one pixel tile: NI whole
+// images (small images), or TH rows x TW columns of one image.  It walks the
+// input channels in chunks of CK.  For each chunk the halo tile (the tile's
+// pixels and a one-pixel border, zero outside the image) and the chunk's
+// weights of all 9 taps land in shared memory once; each tap then reads a
+// shifted window of that one tile, so no input value is fetched per tap and
+// no index needs a divide in the K loop.  The tile is stored channel-
+// innermost (a pixel's CK channels in 16-byte chunks, padded), so a shift by
+// a pixel moves an operand by whole 16-byte chunks and ldmatrix feeds
+// mma.m16n8k16 (bf16 in, float accumulator) at any shift.  Two buffers of
+// each: while the MMAs run on chunk i, chunk i+1's activations are in flight
+// into registers (16-byte loads along W, transposed into the tile on the
+// store) and its weights by cp.async.  The weights come tap-major,
+// (S, 9, F, Cp) with Cp = C rounded up to 8 and zero-padded, as
+// ops/pop_conv.py lays them out.  Each output's sum runs over the chunks in
+// order, the taps in order, then the chunk's channels: fixed by C alone.
+// ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(fwd_tc::NT)
+namespace fwd_hop {
+
+constexpr int NT = 256;  // 8 warps
+
+// The CTA's tile shape for one (BM, BN, warp layout, CK) configuration.
+template <int BM_, int BN_, int WARPS_M_, int CK_>
+struct Cfg {
+  static constexpr int BM = BM_, BN = BN_, WARPS_M = WARPS_M_, CK = CK_;
+  static constexpr int WARPS_N = NT / 32 / WARPS_M;
+  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // a warp's tile
+  static constexpr int MT = WM / 16, NT8 = WN / 8;            // its m16 and n8 blocks
+  static constexpr int KO = CK / 8;      // 16-byte chunks of channels per pixel
+  static constexpr int SC = KO + 1;      // a pixel's pitch in chunks (odd: no bank conflicts)
+  static constexpr int HALO_MAX = NT * 8 / KO;  // halo pixels per buffer
+  static constexpr int WCHUNKS = 9 * BM * SC;   // weight chunks per buffer
+  static constexpr int SCALAR_IT = KO * HALO_MAX / NT;  // halo chunks per thread, narrow path
+  static_assert(WM % 16 == 0 && WN % 16 == 0 && CK % 16 == 0, "warp tile");
+};
+
+// The pixel tile and its halo, computed on the host from (B, H, W) alone.
+struct Geo {
+  int ni, th, tw;        // images, output rows, output columns per tile
+  int rowc;              // a halo row's pitch in 16-byte chunks
+  int tiles_h, tiles_w;  // tiles per image along H and W
+  int hchunks;           // chunks of one halo buffer
+  long long tiles;       // tiles per slot
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes when !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, const uint4& v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1,%2,%3,%4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w));
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(bf16 v) { return __bfloat16_as_ushort(v); }
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+template <class K, bool VEC>
+__global__ void __launch_bounds__(NT)
 fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                 const bf16* __restrict__ bias, bf16* __restrict__ y,
-                int S, int B, int C, int F, int H, int W, XAddr xa) {
-  using namespace fwd_tc;
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  bf16(*As)[LDA] = reinterpret_cast<bf16(*)[LDA]>(smem);
-  bf16(*Bs)[LDB] = reinterpret_cast<bf16(*)[LDB]>(smem + BM * LDA * 2);
-  float(*Cs)[LDC] = reinterpret_cast<float(*)[LDC]>(smem);
+                int S, int B, int C, int F, int H, int W, XAddr xa, Geo g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mblocks = (F + K::BM - 1) / K::BM;
+  const int mb = (int)(blockIdx.x % (unsigned)mblocks);
+  long long tile = blockIdx.x / (unsigned)mblocks;
+  const int twi = (int)(tile % g.tiles_w);
+  tile /= g.tiles_w;
+  const int thi = (int)(tile % g.tiles_h);
+  const int b0 = (int)(tile / g.tiles_h) * g.ni, h0 = thi * g.th, w0 = twi * g.tw;
+  const int s = blockIdx.z, m0 = mb * K::BM;
+  const int HW = H * W, Cp = (C + 7) & ~7, hrows = g.th + 2, hcols = g.tw + 2;
+  const int tile_pix = g.ni * g.th * g.tw, nch = (C + K::CK - 1) / K::CK;
 
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int s = blockIdx.z, m0 = blockIdx.y * BM;
-  const long long n0 = (long long)blockIdx.x * BN;
-  const int HW = H * W, K = C * 9;
-  const long long npix = (long long)B * HW;
-  const bf16* ws = w + (long long)s * F * K;
-
-  // Each thread loads (and later stores) one pixel column of the tile.
-  const int bn = tid % BN, brow = tid / BN;
-  const long long n = n0 + bn;
-  const bool nvalid = n < npix;
-  int pb = 0, ph = 0, pw = 0;
-  if (nvalid) {
-    pb = (int)(n / HW);
-    const int r = (int)(n - (long long)pb * HW);
-    ph = r / W;
-    pw = r - ph * W;
+  // Shared memory: weights [2][9][BM][SC chunks], then halo tiles [2][hchunks].
+  const uint32_t wsm = smem_u32(smem), hsm = wsm + 2 * K::WCHUNKS * 16;
+  const uint32_t hbytes = (uint32_t)g.hchunks * 16;
+  {  // zero the halo buffers: what the loads never write is the zero border
+    uint4* hz = reinterpret_cast<uint4*>(smem + 2 * K::WCHUNKS * 16);
+    for (int i = tid; i < 2 * g.hchunks; i += NT) hz[i] = make_uint4(0, 0, 0, 0);
   }
-  const bf16* ximg = x + xa.slot_base(s) + (long long)pb * xa.bstride;
-  const int ak = tid % BK, arow = tid / BK;
 
-  const int wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[WM / 16][WN / 16];
+  // Each lane's ldmatrix row addresses (bytes, relative to a buffer, tap 0).
+  const int wm0 = (warp / K::WARPS_N) * K::WM, wn0 = (warp % K::WARPS_N) * K::WN;
+  uint32_t aoff[K::MT], boff[K::NT8 / 2];
 #pragma unroll
-  for (int i = 0; i < WM / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < WN / 16; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < BM * BK / NT; ++i) {
-      const int m = arow + i * (NT / BK), k = k0 + ak;
-      As[m][ak] = (m0 + m < F && k < K) ? ws[(long long)(m0 + m) * K + k] : zero_of<bf16>();
-    }
-#pragma unroll
-    for (int i = 0; i < BK * BN / NT; ++i) {
-      const int kl = brow + i * (NT / BN), k = k0 + kl;
-      Bs[kl][bn] = (nvalid && k < K) ? im2col(ximg, k, ph, pw, H, W, HW) : zero_of<bf16>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[WM / 16];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[WN / 16];
-#pragma unroll
-      for (int i = 0; i < WM / 16; ++i) wmma::load_matrix_sync(a[i], &As[wm + 16 * i][kk], LDA);
-#pragma unroll
-      for (int j = 0; j < WN / 16; ++j) wmma::load_matrix_sync(b[j], &Bs[kk][wn + 16 * j], LDB);
-#pragma unroll
-      for (int i = 0; i < WM / 16; ++i)
-#pragma unroll
-        for (int j = 0; j < WN / 16; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int mt = 0; mt < K::MT; ++mt) {
+    const int row = wm0 + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    aoff[mt] = (uint32_t)(row * K::SC + (lane >> 4)) * 16;
   }
 #pragma unroll
-  for (int i = 0; i < WM / 16; ++i)
+  for (int j2 = 0; j2 < K::NT8 / 2; ++j2) {
+    const int n = wn0 + j2 * 16 + (lane >> 4) * 8 + (lane & 7);
+    int pos = 0;  // pixels past the tile read position 0; their outputs are dropped
+    if (n < tile_pix) {
+      const int i = n / (g.th * g.tw), rem = n - i * g.th * g.tw, r = rem / g.tw;
+      pos = (i * hrows + r) * g.rowc + (rem - r * g.tw) * K::SC;
+    }
+    boff[j2] = (uint32_t)(pos + ((lane >> 3) & 1)) * 16;
+  }
+
+  // Activations of one chunk, staged in registers.  Wide path (whole rows,
+  // W a multiple of 8): an item is 8 channels x 8 pixels of one halo row,
+  // eight 16-byte loads.  Narrow path: an item is 8 channels of one halo
+  // pixel, eight 2-byte loads.  Items run channel chunk fastest, so the
+  // stores of a quarter warp land in distinct banks.
+  const bf16* xs = x + xa.slot_base(s);
+  constexpr int NREG = VEC ? 8 : K::SCALAR_IT;
+  uint4 st[NREG];
+  int vpos = -1;  // wide path: the item's first chunk in the tile, -1 if none
+  auto load_act = [&](int ch) {
+    const int c0 = ch * K::CK;
+    if constexpr (VEC) {
+      const int qn = W >> 3, items = g.ni * hrows * qn * K::KO;
+      vpos = -1;
+      if (tid < items) {
+        int t = tid;
+        const int co = t % K::KO;
+        t /= K::KO;
+        const int r = t % hrows;
+        t /= hrows;
+        const int i = t % g.ni, q = t / g.ni;
+        const int b = b0 + i, h = h0 + r - 1;
+        if (b < B && h >= 0 && h < H) {
+          const int c = c0 + co * 8;
+          const bf16* src = xs + (long long)b * xa.bstride + (long long)c * HW + h * W + q * 8;
 #pragma unroll
-    for (int j = 0; j < WN / 16; ++j)
-      wmma::store_matrix_sync(&Cs[wm + 16 * i][wn + 16 * j], acc[i][j], LDC, wmma::mem_row_major);
+          for (int j = 0; j < 8; ++j)
+            st[j] = c + j < C ? __ldg(reinterpret_cast<const uint4*>(src + (long long)j * HW))
+                              : make_uint4(0, 0, 0, 0);
+          vpos = (i * hrows + r) * g.rowc + (1 + q * 8) * K::SC + co;
+        }
+      }
+    } else {
+      const int items = g.ni * hrows * hcols * K::KO;
+#pragma unroll
+      for (int k = 0; k < NREG; ++k) {
+        const int it = tid + k * NT;
+        uint32_t v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = 0;
+        if (it < items) {
+          const int co = it % K::KO, p = it / K::KO;
+          const int cc = p % hcols, t = p / hcols, r = t % hrows, i = t / hrows;
+          const int b = b0 + i, h = h0 + r - 1, ww = w0 + cc - 1;
+          if (b < B && h >= 0 && h < H && ww >= 0 && ww < W) {
+            const int c = c0 + co * 8;
+            const bf16* src = xs + (long long)b * xa.bstride + (long long)c * HW + h * W + ww;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (c + j < C) v[j] = bf16_bits(src[(long long)j * HW]);
+          }
+        }
+        st[k] = make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16,
+                           v[6] | v[7] << 16);
+      }
+    }
+  };
+  auto store_act = [&](uint32_t hb) {
+    if constexpr (VEC) {
+      if (vpos < 0) return;
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {  // st[channel] holds pixels 0..7; o holds channels 0..7
+        const uint32_t sel = (p & 1) ? 0x7632 : 0x5410;
+        const int wd = p >> 1;
+        const uint4 o = make_uint4(__byte_perm(word(st[0], wd), word(st[1], wd), sel),
+                                   __byte_perm(word(st[2], wd), word(st[3], wd), sel),
+                                   __byte_perm(word(st[4], wd), word(st[5], wd), sel),
+                                   __byte_perm(word(st[6], wd), word(st[7], wd), sel));
+        sts128(hb + (uint32_t)(vpos + p * K::SC) * 16, o);
+      }
+    } else {
+      const int items = g.ni * hrows * hcols * K::KO;
+#pragma unroll
+      for (int k = 0; k < NREG; ++k) {
+        const int it = tid + k * NT;
+        if (it < items) {
+          const int co = it % K::KO, p = it / K::KO;
+          const int cc = p % hcols, t = p / hcols, r = t % hrows, i = t / hrows;
+          sts128(hb + (uint32_t)((i * hrows + r) * g.rowc + cc * K::SC + co) * 16, st[k]);
+        }
+      }
+    }
+  };
+  // The chunk's weights of all 9 taps, [tap][m][channel], by cp.async.
+  const bf16* wsl = w + (long long)s * 9 * F * Cp;
+  auto load_w = [&](int ch, uint32_t wb) {
+    const int c0 = ch * K::CK;
+    for (int i = tid; i < 9 * K::BM * K::KO; i += NT) {
+      const int co = i % K::KO, t = i / K::KO, m = t % K::BM, tap = t / K::BM;
+      const int c = c0 + co * 8;
+      const bool ok = m0 + m < F && c < Cp;
+      const bf16* src = ok ? wsl + ((long long)tap * F + m0 + m) * Cp + c : w;
+      cp_async16(wb + (uint32_t)((tap * K::BM + m) * K::SC + co) * 16, src, ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[K::MT][K::NT8][4];
+#pragma unroll
+  for (int mt = 0; mt < K::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < K::NT8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+
+  __syncthreads();  // the zeroed halo before any load writes into it
+  load_act(0);
+  load_w(0, wsm);
+  store_act(hsm);
+  cp_async_wait_all();
   __syncthreads();
-  if (!nvalid) return;
+  for (int ch = 0; ch < nch; ++ch) {
+    const int cur = ch & 1;
+    const bool more = ch + 1 < nch;
+    if (more) {  // the next chunk in flight while this one computes
+      load_act(ch + 1);
+      load_w(ch + 1, wsm + (cur ^ 1) * K::WCHUNKS * 16);
+    }
+    const uint32_t wb = wsm + cur * K::WCHUNKS * 16, hb = hsm + cur * hbytes;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const uint32_t wt = wb + (uint32_t)(tap * K::BM * K::SC) * 16;
+      const uint32_t ht = hb + (uint32_t)((tap / 3) * g.rowc + (tap % 3) * K::SC) * 16;
+#pragma unroll
+      for (int kk = 0; kk < K::KO / 2; ++kk) {
+        uint32_t a[K::MT][4], b[K::NT8][2];
+#pragma unroll
+        for (int mt = 0; mt < K::MT; ++mt)
+          ldsm_x4(wt + aoff[mt] + kk * 32, a[mt][0], a[mt][1], a[mt][2], a[mt][3]);
+#pragma unroll
+        for (int j2 = 0; j2 < K::NT8 / 2; ++j2)
+          ldsm_x4(ht + boff[j2] + kk * 32, b[2 * j2][0], b[2 * j2][1], b[2 * j2 + 1][0],
+                  b[2 * j2 + 1][1]);
+#pragma unroll
+        for (int mt = 0; mt < K::MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < K::NT8; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+      }
+    }
+    if (more) {
+      store_act(hsm + (cur ^ 1) * hbytes);
+      cp_async_wait_all();
+    }
+    __syncthreads();
+  }
+
+  // Epilogue: round to bf16, add the bias in bf16 (epilogue()), stage the
+  // tile in shared memory as [m][pixel], then store along W.
+  constexpr int LDC = K::BN + 8;
+  bf16* cs = reinterpret_cast<bf16*>(smem);
   const bf16* bs = bias ? bias + (long long)s * F : nullptr;
-  bf16* yimg = y + ((long long)pb * S * F + (long long)s * F) * HW + ph * W + pw;
-  for (int m = brow; m < BM; m += NT / BN) {
-    if (m0 + m < F) yimg[(long long)(m0 + m) * HW] = epilogue(Cs[m][bn], bs, m0 + m);
+#pragma unroll
+  for (int mt = 0; mt < K::MT; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = wm0 + mt * 16 + (lane >> 2) + half * 8;
+      const bf16* bm = m0 + m < F ? bs : nullptr;
+#pragma unroll
+      for (int nt = 0; nt < K::NT8; ++nt) {
+        const int n = wn0 + nt * 8 + (lane & 3) * 2;
+        __nv_bfloat162 v;
+        v.x = epilogue(acc[mt][nt][2 * half], bm, m0 + m);
+        v.y = epilogue(acc[mt][nt][2 * half + 1], bm, m0 + m);
+        *reinterpret_cast<__nv_bfloat162*>(cs + m * LDC + n) = v;
+      }
+    }
+  }
+  __syncthreads();
+  bf16* ys = y + (long long)s * F * HW;
+  const long long ybstride = (long long)S * F * HW;
+  if constexpr (VEC) {  // whole rows, W a multiple of 8: 8 pixels of one row per store
+    for (int it = tid; it < K::BM * (K::BN / 8); it += NT) {
+      const int m = it / (K::BN / 8), n = (it - m * (K::BN / 8)) * 8;
+      if (m0 + m >= F || n >= tile_pix) continue;
+      const int i = n / (g.th * W), rem = n - i * g.th * W, r = rem / W;
+      const int b = b0 + i, h = h0 + r;
+      if (b >= B || h >= H) continue;
+      *reinterpret_cast<uint4*>(ys + b * ybstride + (long long)(m0 + m) * HW + h * W + rem -
+                                r * W) = *reinterpret_cast<const uint4*>(cs + m * LDC + n);
+    }
+  } else {
+    for (int it = tid; it < K::BM * K::BN; it += NT) {
+      const int m = it / K::BN, n = it - m * K::BN;
+      if (m0 + m >= F || n >= tile_pix) continue;
+      const int i = n / (g.th * g.tw), rem = n - i * g.th * g.tw, r = rem / g.tw;
+      const int b = b0 + i, h = h0 + r, ww = w0 + rem - r * g.tw;
+      if (b >= B || h >= H || ww >= W) continue;
+      ys[b * ybstride + (long long)(m0 + m) * HW + h * W + ww] = cs[m * LDC + n];
+    }
   }
 }
+
+template <class K>
+Geo geometry(int B, int H, int W) {
+  Geo g;
+  g.tw = W < K::BN ? W : K::BN;
+  g.th = H < K::BN / g.tw ? H : K::BN / g.tw;
+  g.ni = 1;
+  if (g.th == H && g.tw == W) {
+    g.ni = K::BN / (H * W);
+    if (g.ni > B) g.ni = B;
+    if (g.ni < 1) g.ni = 1;
+  }
+  auto halo = [&] { return g.ni * (g.th + 2) * (g.tw + 2); };
+  while (g.ni > 1 && halo() > K::HALO_MAX) --g.ni;
+  while (g.th > 1 && halo() > K::HALO_MAX) --g.th;
+  while (g.tw > 1 && halo() > K::HALO_MAX) --g.tw;
+  // A halo row's pitch: a pixel's pitch is odd, and successive rows start
+  // KO chunks apart modulo 8, so a quarter warp's stores (KO chunks of
+  // 8 / KO rows) hit distinct banks.
+  g.rowc = (g.tw + 2) * K::SC;
+  while (g.rowc % 8 != K::KO % 8) ++g.rowc;
+  g.tiles_h = (H + g.th - 1) / g.th;
+  g.tiles_w = (W + g.tw - 1) / g.tw;
+  g.tiles = (long long)((B + g.ni - 1) / g.ni) * g.tiles_h * g.tiles_w;
+  g.hchunks = g.ni * (g.th + 2) * g.rowc;
+  return g;
+}
+
+template <class K>
+int launch(const bf16* x, const bf16* w, const bf16* bias, bf16* y, int S, int B, int C, int F,
+           int H, int W, XAddr xa, cudaStream_t st) {
+  const Geo g = geometry<K>(B, H, W);
+  const long long blocks = g.tiles * ((F + K::BM - 1) / K::BM);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int halo_smem = (2 * K::WCHUNKS + 2 * g.hchunks) * 16, out_smem = K::BM * (K::BN + 8) * 2;
+  const int smem = halo_smem > out_smem ? halo_smem : out_smem;
+  const bool vec = g.tw == W && W % 8 == 0 && ((uintptr_t)x & 15) == 0 && ((uintptr_t)y & 15) == 0;
+  auto kernel = vec ? fwd_bf16_kernel<K, true> : fwd_bf16_kernel<K, false>;
+  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  kernel<<<dim3((unsigned)blocks, 1, S), NT, smem, st>>>(x, w, bias, y, S, B, C, F, H, W, xa, g);
+  return (int)cudaGetLastError();
+}
+
+// The configurations, and the one a shape takes.  The choice reads the shape
+// only, never S: it fixes CK, and so every output's sum order.  At config
+// #2's shapes (tools/tune_pop_conv.py) 32 channels x 256 pixels in chunks of
+// 16 channels is the faster below C = 128 and 64 x 256 in chunks of 32 at
+// C = 128; five other tile shapes were slower at every shape.
+typedef int (*Launcher)(const bf16*, const bf16*, const bf16*, bf16*, int, int, int, int, int,
+                        int, XAddr, cudaStream_t);
+const Launcher kConfigs[] = {
+    launch<Cfg<32, 256, 1, 16>>,  // 0
+    launch<Cfg<64, 256, 2, 32>>,  // 1
+};
+constexpr int kNumConfigs = sizeof(kConfigs) / sizeof(kConfigs[0]);
+
+int pick(int C, int F, int H, int W) {
+  (void)F, (void)H, (void)W;
+  return C >= 128 ? 1 : 0;
+}
+
+}  // namespace fwd_hop
 
 namespace fwd_fma {  // float32 and float64: FMA loops, a 4x4 tile per thread
 constexpr int BM = 64, BN = 64, BK = 16, NT = 256, TM = BM / 16, TN = BN / 16;
@@ -526,8 +839,10 @@ int launch_wgrad_fma(const void* x, const void* dy, void* part, void* dbpart, vo
 
 extern "C" {
 
-// y (B, S*F, H, W) = conv(x, w) + bias (bias may be null).  Returns a CUDA
-// error code, 0 when the launch was accepted.
+// y (B, S*F, H, W) = conv(x, w) + bias (bias may be null).  w is (S, F, C, 3, 3)
+// for float32 and float64, and tap-major (S, 9, F, Cp), Cp = C rounded up to
+// 8, zero-padded, for bf16.  Returns a CUDA error code, 0 when the launch was
+// accepted.
 int gentun_pop_conv3x3_fwd(int dtype, const void* x, const void* w, const void* bias, void* y,
                            int S, int B, int C, int F, int H, int W, long long sstride,
                            long long bstride, void* stream) {
@@ -535,17 +850,32 @@ int gentun_pop_conv3x3_fwd(int dtype, const void* x, const void* w, const void* 
   XAddr xa{sstride, bstride};
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
-    case kBF16: {
-      dim3 grid(cdiv((long long)B * H * W, fwd_tc::BN), cdiv(F, fwd_tc::BM), S);
-      fwd_bf16_kernel<<<grid, fwd_tc::NT, 0, st>>>((const bf16*)x, (const bf16*)w,
-                                                   (const bf16*)bias, (bf16*)y, S, B, C, F, H,
-                                                   W, xa);
-      return (int)cudaGetLastError();
-    }
+    case kBF16:
+      return fwd_hop::kConfigs[fwd_hop::pick(C, F, H, W)](
+          (const bf16*)x, (const bf16*)w, (const bf16*)bias, (bf16*)y, S, B, C, F, H, W, xa, st);
     case kF32: return launch_fwd_fma<float>(x, w, bias, y, S, B, C, F, H, W, xa, st);
     case kF64: return launch_fwd_fma<double>(x, w, bias, y, S, B, C, F, H, W, xa, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 forward in configuration cfg of fwd_hop::kConfigs (cfg < 0: the
+// one gentun_pop_conv3x3_fwd picks), for timing the configurations against
+// each other; the arguments are gentun_pop_conv3x3_fwd's.  Returns -1 when
+// there is no configuration cfg.
+int gentun_pop_conv3x3_fwd_bf16_config(int cfg, const void* x, const void* w, const void* bias,
+                                       void* y, int S, int B, int C, int F, int H, int W,
+                                       long long sstride, long long bstride, void* stream) {
+  if (cfg >= fwd_hop::kNumConfigs) return -1;
+  if (S < 1 || S > 65535) return (int)cudaErrorInvalidValue;
+  if (cfg < 0) cfg = fwd_hop::pick(C, F, H, W);
+  return fwd_hop::kConfigs[cfg]((const bf16*)x, (const bf16*)w, (const bf16*)bias, (bf16*)y, S,
+                                B, C, F, H, W, XAddr{sstride, bstride}, (cudaStream_t)stream);
+}
+
+// Which configuration gentun_pop_conv3x3_fwd takes for a bf16 shape.
+int gentun_pop_conv3x3_fwd_bf16_pick(int C, int F, int H, int W) {
+  return fwd_hop::pick(C, F, H, W);
 }
 
 // dw (S, F, C, 3, 3) and db (S, F) from x and dy (B, S*F, H, W), through the

@@ -38,6 +38,8 @@ build_log = ""
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "gentun_pop_conv3x3_fwd": (_I, [_I, _P, _P, _P, _P, *[_I] * 6, _L, _L, _P]),
+    "gentun_pop_conv3x3_fwd_bf16_config": (_I, [_I, _P, _P, _P, _P, *[_I] * 6, _L, _L, _P]),
+    "gentun_pop_conv3x3_fwd_bf16_pick": (_I, [_I] * 4),
     "gentun_pop_conv3x3_wgrad": (_I, [_I, *[_P] * 6, *[_I] * 8, _L, _L, _P]),
     "gentun_cuda_error_string": (ctypes.c_char_p, [_I]),
 }

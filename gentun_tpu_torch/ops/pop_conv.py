@@ -9,7 +9,8 @@ batch) is ``(B, C, H, W)``, read in place by every slot.
   the two CUDA kernels in ``csrc/pop_conv3x3.cu`` (built at first use by
   :mod:`._build`).  On a CUDA tensor they launch the kernel or raise; on a
   CPU tensor they compute the same function with plain PyTorch.  Each counts
-  its launches in :data:`LAUNCHES`.
+  its launches in :data:`LAUNCHES`.  The bf16 forward kernel reads its
+  weights tap-major; :func:`tap_major` lays them out (one copy per call).
 - :class:`PopConv3x3Fn` is the autograd function the model calls on any
   device (its wrappers pick the kernel or the plain version): forward
   is the forward kernel, the input gradient is the forward kernel run on
@@ -42,6 +43,7 @@ __all__ = [
     "pop_conv3x3_wgrad",
     "pop_conv3x3_reference",
     "pop_conv3x3_wgrad_reference",
+    "tap_major",
 ]
 
 #: Kernel launches per wrapper, counted where the kernel is launched and
@@ -133,6 +135,21 @@ def pop_conv3x3_wgrad_reference(
     return torch.stack(dws), torch.stack(dbs)
 
 
+def tap_major(weight: torch.Tensor) -> torch.Tensor:
+    """Weights ``(S, F, C, 3, 3)`` as the bf16 forward kernel reads them:
+    ``(S, 9, F, Cp)``, ``[s, 3·kh + kw, o, c] = weight[s, o, c, kh, kw]``, with
+    C zero-padded to Cp, the next multiple of 8, so that each (tap, output
+    channel) row is whole 16-byte chunks."""
+    slots, f, c = weight.shape[:3]
+    cp = -(-c // 8) * 8
+    taps = weight.permute(0, 3, 4, 1, 2).reshape(slots, 9, f, c)
+    if cp == c:
+        return taps.contiguous()
+    out = weight.new_zeros((slots, 9, f, cp))
+    out[..., :c] = taps
+    return out
+
+
 def pop_conv3x3_fwd(
     x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None, shared: bool = False
 ) -> torch.Tensor:
@@ -146,6 +163,8 @@ def pop_conv3x3_fwd(
     _check_cuda("pop_conv3x3_fwd", x, weight, bias)
     slots, f = weight.shape[:2]
     y = torch.empty((b, slots * f, h, w), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.bfloat16:  # the bf16 kernel reads its weights tap-major
+        weight = tap_major(weight)
     with torch.cuda.device(x.device):  # the launch goes to the tensors' card
         rc = _build.library().gentun_pop_conv3x3_fwd(
             _DTYPE_CODE[x.dtype], x.data_ptr(), weight.data_ptr(),

@@ -224,6 +224,31 @@ def test_wrappers_refuse_more_slots_than_the_grid_takes(wrapper):
             pop_conv3x3_wgrad(x, torch.zeros(1, slots, 1, 1), (slots, 1, 1, 3, 3))
 
 
+@pytest.mark.parametrize("c", [1, 3, 8, 20])
+def test_tap_major_is_the_plain_layout(c):
+    """The bf16 forward kernel's weights, laid out by the wrapper:
+    ``[s, 3·kh + kw, o, c] = weight[s, o, c, kh, kw]``, C zero-padded to the
+    next multiple of 8, contiguous, in the weights' dtype."""
+    rng = np.random.default_rng(c)
+    slots, f = 2, 5
+    w = rng.normal(size=(slots, f, c, 3, 3)).astype(np.float32)
+    cp = -(-c // 8) * 8
+    want = np.zeros((slots, 9, f, cp), np.float32)
+    for s in range(slots):
+        for kh in range(3):
+            for kw in range(3):
+                for o in range(f):
+                    for ci in range(c):
+                        want[s, 3 * kh + kw, o, ci] = w[s, o, ci, kh, kw]
+    got = pop_conv.tap_major(torch.tensor(w))
+    assert got.is_contiguous() and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    got16 = pop_conv.tap_major(torch.tensor(w).to(torch.bfloat16))
+    assert got16.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got16.float().numpy(),
+                                  torch.tensor(want).to(torch.bfloat16).float().numpy())
+
+
 def test_build_is_keyed_by_the_sources_and_needs_no_compiler_to_import():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.name.startswith("libgentun_kernels_")
