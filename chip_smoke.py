@@ -15,16 +15,18 @@ K. Kernels: both kernels (``pop_conv3x3_fwd``, also run as the input
    gradient, and ``pop_conv3x3_wgrad``) at every conv shape of config #2's
    train step (pop 20, batch 256) and eval forward (batch 1,024), in bf16
    and float32, at config #1's shapes, in float64 and at 600 slots of batch
-   512 (more slots × splits than a grid's z axis takes), and the forward
-   kernel at the edge shapes of ``EDGE_SHAPES`` (rows that are not whole
-   16-byte chunks, C=1 and C=3 with a shared input, F=20 and 50, partial
-   tiles, 600 slots), each held against its plain PyTorch version on the
-   same inputs within the tolerance stated in ``TOLERANCE``; each config #2
-   call's kernel, plain, cuDNN grouped-conv (the library yardstick, which the
-   port never calls) and bound times.  Then the forward kernel's purity
-   witness, a gate: at each config #2 conv, as forward and input gradient,
-   bf16 and float32, slots 0 and 7 of an S=20 call give the same bits alone
-   (S=1) and as slot 1 of an S=3 call.
+   512 (more slots × splits than a grid's z axis takes), and both kernels
+   (forward, input gradient, weight gradient) at the edge shapes of
+   ``EDGE_SHAPES`` (rows that are not whole 16-byte chunks, C=1 and C=3
+   with a shared input, F=20 and 50, partial tiles, 600 slots), each held
+   against its plain PyTorch version on the same inputs within the
+   tolerance stated in ``TOLERANCE``; each config #2 call's kernel, plain,
+   cuDNN grouped-conv (the library yardstick, which the port never calls)
+   and bound times, and the weight gradient's splits and partials' bytes.
+   Then the kernels' purity witness, a gate: at each config #2 conv, as
+   forward, input gradient and weight gradient, bf16 and float32, slots 0
+   and 7 of an S=20 call give the same bits alone (S=1) and as slot 1 of an
+   S=3 call.
 L. Step 0's leaf check: one genome's grad leaves after one train step's
    backward in slot 0 of a P=2 and of the P=20 model, bf16 and float32,
    must be the same bits; the differing leaves are printed.
@@ -247,6 +249,9 @@ def conv_case(torch, dtype: str, role: str, shared: bool, slots: int,
             False, [0, 0], lib_groups, [False, True, True])[1:]
         flops += 1.0 * b * h * wd * f * slots
         nbytes = (x.numel() + dy.numel() + w.numel() + bias.numel()) * esize
+        splits, _ = pop_conv.wgrad_split(b, h, wd, c, f, dt)
+        # the float partials, written by the kernel and read by its second pass
+        scratch = 2 * slots * splits * f * (9 * c + 1) * (8 if dtype == "float64" else 4)
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False  # the plain version and the library in IEEE float32
     try:
@@ -258,6 +263,8 @@ def conv_case(torch, dtype: str, role: str, shared: bool, slots: int,
         tol = TOLERANCE[dtype, role]
         out = {"dtype": dtype, "role": role, "shape": [slots, c, f, b, h, wd, int(shared)],
                "max_abs_err": err, "rel_err": err / max(scale, 1e-300), "tol": tol}
+        if role == "wgrad":
+            out["splits"], out["scratch_bytes"] = splits, scratch
         if timed:
             out["ms"] = cuda_ms(torch, kernel)
             out["plain_ms"] = cuda_ms(torch, plain)
@@ -272,9 +279,9 @@ def conv_case(torch, dtype: str, role: str, shared: bool, slots: int,
     return out
 
 
-#: Edge shapes of the forward kernel, each held against the plain version in
-#: bf16 and float32, as the forward and (own input) the input gradient:
-#: (slots, C, F, B, H, W, shared input).
+#: Edge shapes of the kernels, each held against the plain version in bf16
+#: and float32, as the forward, (own input) the input gradient and the
+#: weight gradient: (slots, C, F, B, H, W, shared input).
 EDGE_SHAPES = [
     (4, 16, 24, 9, 7, 7, False),     # 7-wide rows: 14 bytes, not 16-byte chunks
     (3, 8, 8, 5, 5, 5, False),       # 5-wide rows
@@ -292,45 +299,59 @@ EDGE_SHAPES = [
 
 
 def kernel_purity(torch):
-    """The forward kernel's own purity witness: for each conv of config #2's
-    train step, as the forward and (own input) as the input gradient, in bf16
-    and float32, slots 0 and 7 of an S=20 call run again alone (S=1) and as
-    slot 1 of an S=3 call must give the same bits.  Returns the rows; the
-    phase fails on any difference."""
+    """The kernels' own purity witness: for each conv of config #2's train
+    step, as the forward, (own input) as the input gradient and as the weight
+    gradient, in bf16 and float32, slots 0 and 7 of an S=20 call run again
+    alone (S=1) and as slot 1 of an S=3 call must give the same bits (the
+    output, or dW and db).  Returns the rows; the phase fails on any
+    difference."""
     from gentun_tpu_torch.ops import pop_conv
 
     dev, b, rows = torch.device("cuda"), 256, []
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         for name, shared, c, f, h, _ in conv_layers(NODES, FILTERS, 32, 3):
-            for role in ("fwd",) if shared else ("fwd", "dgrad"):
-                cin, cout = (c, f) if role == "fwd" else (f, c)
+            for role in ("fwd", "wgrad") if shared else ("fwd", "dgrad", "wgrad"):
+                cin, cout = (f, c) if role == "dgrad" else (c, f)
                 g = torch.Generator(device=dev).manual_seed(cin * 1000 + cout)
                 rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev).to(dt)
-                x = rnd(b, cin, h, h) if shared else rnd(b, POP * cin, h, h)
-                wt = rnd(POP, cout, cin, 3, 3)
-                bias = rnd(POP, cout) if role == "fwd" else None
-                y = pop_conv.pop_conv3x3_fwd(x, wt, bias, shared).view(b, POP, cout, h, h)
+
+                def operand():  # one slot's operands besides its input
+                    if role == "wgrad":
+                        return (rnd(b, cout, h, h),)  # dY
+                    if role == "fwd":
+                        return rnd(cout, cin, 3, 3), rnd(cout)  # weights, bias
+                    return (rnd(cout, cin, 3, 3),)
+
+                def run(xs, ops):
+                    """The kernel on len(ops) slots; each slot's outputs."""
+                    n, xin = len(ops), xs if shared else torch.cat(xs, 1)
+                    if role == "wgrad":
+                        dw, db = pop_conv.pop_conv3x3_wgrad(
+                            xin, torch.cat([o[0] for o in ops], 1), (n, cout, cin, 3, 3), shared)
+                        return [(dw[k], db[k]) for k in range(n)]
+                    wt = torch.stack([o[0] for o in ops])
+                    bias = torch.stack([o[1] for o in ops]) if role == "fwd" else None
+                    y = pop_conv.pop_conv3x3_fwd(xin, wt, bias, shared).view(b, n, cout, h, h)
+                    return [(y[:, k],) for k in range(n)]
+
+                x = rnd(b, cin, h, h) if shared else [rnd(b, cin, h, h) for _ in range(POP)]
+                ops = [operand() for _ in range(POP)]
+                full = run(x, ops)
                 differ = []
                 for slot in (0, 7):
-                    xs = x if shared else x.view(b, POP, cin, h, h)[:, slot].contiguous()
-                    bs = None if bias is None else bias[slot:slot + 1]
-                    alone = pop_conv.pop_conv3x3_fwd(xs, wt[slot:slot + 1], bs, shared)
-                    x3 = xs if shared else torch.stack(
-                        [rnd(b, cin, h, h), xs, rnd(b, cin, h, h)], 1).view(b, 3 * cin, h, h)
-                    w3 = torch.cat([rnd(1, cout, cin, 3, 3), wt[slot:slot + 1],
-                                    rnd(1, cout, cin, 3, 3)])
-                    b3 = None if bias is None else torch.cat([rnd(1, cout), bs, rnd(1, cout)])
-                    third = pop_conv.pop_conv3x3_fwd(x3, w3, b3, shared).view(b, 3, cout, h, h)
-                    if not torch.equal(alone, y[:, slot]):
-                        differ.append(f"slot {slot} alone")
-                    if not torch.equal(third[:, 1], y[:, slot]):
-                        differ.append(f"slot {slot} as slot 1 of 3")
+                    alone = run(x if shared else [x[slot]], [ops[slot]])[0]
+                    x3 = x if shared else [rnd(b, cin, h, h), x[slot], rnd(b, cin, h, h)]
+                    third = run(x3, [operand(), ops[slot], operand()])[1]
+                    for what, got in ((f"slot {slot} alone", alone),
+                                      (f"slot {slot} as slot 1 of 3", third)):
+                        if not all(torch.equal(u, v) for u, v in zip(got, full[slot])):
+                            differ.append(what)
                 rows.append({"dtype": dtype, "role": role, "layer": name, "differ": differ})
                 log(f"[K] purity {dtype:8s} {role:5s} {name:12s} C={cin:3d} F={cout:3d}: slots 0 "
                     f"and 7 of S={POP} vs alone (S=1) and as slot 1 of S=3: "
                     f"{'same bits' if not differ else 'DIFFER ' + ', '.join(differ)}")
-                check(not differ, f"forward kernel purity, {dtype} {role} {name}: {differ}")
+                check(not differ, f"kernel purity, {dtype} {role} {name}: {differ}")
     return rows
 
 
@@ -339,7 +360,7 @@ def phase_kernels(torch):
     batch 256) and eval forward (batch 1,024), in bf16 and float32, and at
     config #1's shapes (pop 10, batch 128, 28×28 and 14×14, channel counts
     that are not multiples of 16), each held against its plain version;
-    float64 once; the forward at ``EDGE_SHAPES``; then
+    float64 once; every role at ``EDGE_SHAPES``; then
     :func:`kernel_purity`.
     Returns per-step totals of the timed bf16 config #2 calls."""
     rows = []
@@ -354,7 +375,10 @@ def phase_kernels(torch):
                 log(f"[K] {dtype:8s} {role:5s} {name:12s} C={c:3d} F={f:3d} {h}x{h} B=256 P={POP}: "
                     f"err {r['rel_err']:.2e} (tol {r['tol']:.0e}); kernel {r['ms']:.3f} ms, plain "
                     f"{r['plain_ms']:.3f}, cuDNN grouped {r['library_ms']:.3f}, "
-                    f"bound {r['bound_ms']:.3f} ms x{n} per step")
+                    f"bound {r['bound_ms']:.3f} ms (bytes {r['bound_bytes_ms']:.3f}, operations "
+                    f"{r['bound_ops_ms']:.3f}) x{n} per step"
+                    + (f"; {r['splits']} splits, partials {r['scratch_bytes'] / 1e6:.1f} MB "
+                       f"written and read" if role == "wgrad" else ""))
                 if dtype == "bfloat16":
                     kname = "pop_conv3x3_wgrad" if role == "wgrad" else "pop_conv3x3_fwd"
                     tot = per_step[kname]
@@ -391,7 +415,7 @@ def phase_kernels(torch):
         f"{r['rel_err']:.2e} (tol {r['tol']:.0e})")
     for dtype in ("bfloat16", "float32"):
         for slots, c, f, b, h, wd, shared in EDGE_SHAPES:
-            for role in ("fwd",) if shared else ("fwd", "dgrad"):
+            for role in ("fwd", "wgrad") if shared else ("fwd", "dgrad", "wgrad"):
                 r = conv_case(torch, dtype, role, shared, slots, c, f, b, h, False, width=wd)
                 rows.append(r)
                 log(f"[K] edge {dtype} {role} S={slots} C={c} F={f} B={b} {h}x{wd}"

@@ -41,6 +41,8 @@ _SIGNATURES = {
     "gentun_pop_conv3x3_fwd_bf16_config": (_I, [_I, _P, _P, _P, _P, *[_I] * 6, _L, _L, _P]),
     "gentun_pop_conv3x3_fwd_bf16_pick": (_I, [_I] * 4),
     "gentun_pop_conv3x3_wgrad": (_I, [_I, *[_P] * 6, *[_I] * 8, _L, _L, _P]),
+    "gentun_pop_conv3x3_wgrad_bf16_config": (_I, [_I, *[_P] * 6, *[_I] * 8, _L, _L, _P]),
+    "gentun_pop_conv3x3_wgrad_bf16_pick": (_I, [_I] * 4),
     "gentun_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -37,25 +37,50 @@ from . import _build
 __all__ = [
     "LAUNCHES",
     "MAX_SLOTS",
-    "PIX_PER_SPLIT",
     "PopConv3x3Fn",
     "pop_conv3x3_fwd",
     "pop_conv3x3_wgrad",
     "pop_conv3x3_reference",
     "pop_conv3x3_wgrad_reference",
     "tap_major",
+    "wgrad_split",
 ]
 
 #: Kernel launches per wrapper, counted where the kernel is launched and
 #: nowhere else (a CPU call launches nothing).
 LAUNCHES: Dict[str, int] = {"pop_conv3x3_fwd": 0, "pop_conv3x3_wgrad": 0}
 
-#: Pixels (of B·H·W) per split of the weight-gradient reduction.  The number
-#: of splits is ceil(B·H·W / PIX_PER_SPLIT): a function of the shape alone.
-#: The kernels walk a split in whole chunks of 32 pixels (bf16) and 16 (FMA).
-PIX_PER_SPLIT = 4096
-if PIX_PER_SPLIT % 32:
-    raise ValueError("PIX_PER_SPLIT must be a whole number of 32-pixel chunks")
+#: Pixels per split of the float32 and float64 weight gradient, whose FMA
+#: kernel walks a split in chunks of 16 pixels.
+FMA_PIX_PER_SPLIT = 4096
+#: The bf16 weight gradient's floor on pixels per split: 16 tiles of 256
+#: pixels, so each CTA's pipeline of tile loads runs long enough to hide them.
+MIN_PIX_PER_SPLIT = 4096
+#: Pixels per split at least WGRAD_SCRATCH_FACTOR·C·F/(C+F) keeps the float32
+#: partials (written, then read by the second pass: 2·splits·F·9C·4 bytes) at
+#: most 36/WGRAD_SCRATCH_FACTOR = 0.28 of the inputs x and dY
+#: (B·H·W·(C+F)·2 bytes).
+WGRAD_SCRATCH_FACTOR = 128
+
+
+def wgrad_split(b: int, h: int, w: int, c: int, f: int, dtype) -> Tuple[int, int]:
+    """``(splits, pixels per split)`` of the weight gradient's reduction over
+    B·H·W pixels, from the shape alone (never the slot count): split ``sp``
+    sums pixels ``[sp·pps, (sp+1)·pps)`` of the order (b, h, w), the kernels
+    write one float partial per split and a second pass adds them in split
+    order, so the count fixes every sum's order.
+
+    bf16: whole images per split (the kernel walks a split's images in tiles
+    of whole rows), at least ``MIN_PIX_PER_SPLIT`` pixels and at least
+    ``WGRAD_SCRATCH_FACTOR·C·F/(C+F)``, rounded up to whole images and
+    capped at the batch.  float32 and float64: ``FMA_PIX_PER_SPLIT``.
+    """
+    if dtype != torch.bfloat16:
+        return -(-(b * h * w) // FMA_PIX_PER_SPLIT), FMA_PIX_PER_SPLIT
+    want = max(MIN_PIX_PER_SPLIT, WGRAD_SCRATCH_FACTOR * c * f // (c + f))
+    images = min(b, -(-want // (h * w)))
+    return -(-b // images), images * h * w
+
 
 #: Most slots one call takes: the slot is the kernels' grid z axis.  The
 #: wrappers refuse more on any device, so a CPU run takes what the card takes.
@@ -81,6 +106,12 @@ def _geometry(x: torch.Tensor, weight_shape, shared: bool):
         raise ValueError(f"input must be (B, {slots}·{c}, H, W), got {tuple(x.shape)}")
     b, _, h, w = x.shape
     return b, c, h, w, c * h * w, slots * c * h * w
+
+
+def _wgrad_plan(x: torch.Tensor, weight_shape, shared: bool) -> Tuple[int, int]:
+    """:func:`wgrad_split` of the weight gradient whose conv input is ``x``."""
+    b, c, h, w, _, _ = _geometry(x, weight_shape, shared)
+    return wgrad_split(b, h, w, c, int(weight_shape[1]), x.dtype)
 
 
 def _check_cuda(what: str, *tensors: Optional[torch.Tensor]) -> None:
@@ -192,7 +223,7 @@ def pop_conv3x3_wgrad(
     if x.device.type != "cuda":
         raise RuntimeError(f"pop_conv3x3_wgrad runs on a CUDA or a CPU tensor, not {x.device}")
     _check_cuda("pop_conv3x3_wgrad", x, dy)
-    splits = -(-(b * h * w) // PIX_PER_SPLIT)
+    splits, pix_per_split = _wgrad_plan(x, weight_shape, shared)
     acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     part = torch.empty((slots, splits, f, c * 9), dtype=acc, device=x.device)
     dbpart = torch.empty((slots, splits, f), dtype=acc, device=x.device)
@@ -202,7 +233,7 @@ def pop_conv3x3_wgrad(
         rc = _build.library().gentun_pop_conv3x3_wgrad(
             _DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(), part.data_ptr(),
             dbpart.data_ptr(), dw.data_ptr(), db.data_ptr(), slots, b, c, f, h, w, splits,
-            PIX_PER_SPLIT, sstride, bstride,
+            pix_per_split, sstride, bstride,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(rc, "pop_conv3x3_wgrad")

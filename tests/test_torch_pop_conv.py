@@ -256,3 +256,100 @@ def test_build_is_keyed_by_the_sources_and_needs_no_compiler_to_import():
     names = [p.name for p in _build._sources()]
     assert "pop_conv3x3.cu" in names
     assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+#: The weight gradient's split counts at config #2's convs (pop 20, batch 256,
+#: 32×32×3, filters 32/64/128) and config #1's (pop 10, batch 128, 28×28×1,
+#: filters 20/50), as PERF.md states them: (B, H, C, F) -> (bf16, float32).
+SPLITS = {
+    "config #2 stage0 entry": ((256, 32, 3, 32), (64, 64)),
+    "config #2 stage0 node": ((256, 32, 32, 32), (64, 64)),
+    "config #2 stage1 entry": ((256, 16, 32, 64), (16, 16)),
+    "config #2 stage1 node": ((256, 16, 64, 64), (16, 16)),
+    "config #2 stage2 entry": ((256, 8, 64, 128), (3, 4)),
+    "config #2 stage2 node": ((256, 8, 128, 128), (2, 4)),
+    "config #1 stage0 entry": ((128, 28, 1, 20), (22, 25)),
+    "config #1 stage0 node": ((128, 28, 20, 20), (22, 25)),
+    "config #1 stage1 entry": ((128, 14, 20, 50), (7, 7)),
+    "config #1 stage1 node": ((128, 14, 50, 50), (7, 7)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLITS))
+def test_wgrad_split_counts_of_the_config_shapes(case):
+    (b, h, c, f), (bf16, f32) = SPLITS[case]
+    assert pop_conv.wgrad_split(b, h, h, c, f, torch.bfloat16)[0] == bf16
+    assert pop_conv.wgrad_split(b, h, h, c, f, torch.float32)[0] == f32
+    assert pop_conv.wgrad_split(b, h, h, c, f, torch.float64)[0] == f32
+
+
+#: (B, H, W, C, F) of the split-coverage cases: the config shapes, the
+#: kernels' edge shapes (rows that are not whole 16-byte chunks, 300-wide
+#: rows, one image), and batches that are not whole splits.
+COVER = [(b, h, h, c, f) for (b, h, c, f), _ in SPLITS.values()] + [
+    (9, 7, 7, 16, 24), (5, 5, 5, 8, 8), (1, 3, 300, 8, 8), (3, 8, 8, 128, 64),
+    (512, 32, 32, 3, 4), (300, 16, 16, 64, 64), (1000, 8, 8, 128, 128), (2, 24, 24, 32, 32),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "float32"])
+@pytest.mark.parametrize("shape", COVER, ids=[str(s) for s in COVER])
+def test_wgrad_split_covers_every_pixel_once_in_whole_chunks(shape, dtype):
+    """Split sp sums pixels [sp·pps, (sp+1)·pps) of B·H·W: together the
+    splits cover every pixel exactly once, no split is empty, and a split is
+    whole chunks: whole images for bf16 (the kernel walks a split's images
+    in tiles of whole rows), 16-pixel chunks for the FMA kernel."""
+    b, h, w, c, f = shape
+    splits, pps = pop_conv.wgrad_split(b, h, w, c, f, dtype)
+    chunk = h * w if dtype == torch.bfloat16 else 16
+    assert splits >= 1 and pps >= chunk and pps % chunk == 0
+    seen = np.zeros(b * h * w, np.int64)
+    for sp in range(splits):
+        lo, hi = sp * pps, min((sp + 1) * pps, b * h * w)
+        assert lo < hi, f"split {sp} is empty"
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    if dtype == torch.bfloat16:  # at least MIN_PIX_PER_SPLIT, unless the batch is smaller
+        assert pps >= min(pop_conv.MIN_PIX_PER_SPLIT, b * h * w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float64],
+                         ids=["bf16", "float32", "float64"])
+@pytest.mark.parametrize("shared", [False, True], ids=["own input", "shared input"])
+def test_wgrad_split_depends_on_the_shape_alone(shared, dtype):
+    """The split the weight-gradient wrapper takes (and so every sum's order)
+    is the same at S = 1, 3, 20 and 600 slots: a slot's dW and db cannot
+    depend on how many genomes share its call."""
+    b, c, f, h, w = 256, 3 if shared else 32, 32, 32, 32
+    plans = set()
+    for slots in (1, 3, 20, 600):
+        x = torch.empty((b, c, h, w) if shared else (b, slots * c, h, w), dtype=dtype,
+                        device="meta")
+        plans.add(pop_conv._wgrad_plan(x, (slots, f, c, 3, 3), shared))
+    assert plans == {pop_conv.wgrad_split(b, h, w, c, f, dtype)}
+
+
+def test_build_signatures_declare_every_exported_entry_point():
+    """Every function of the sources' C interface has a ctypes signature in
+    ``_build._SIGNATURES`` (a missing one would pass pointers as 32-bit
+    ints), and every signature names a function the sources export."""
+    import re
+
+    exported = set()
+    for src in _build._sources():
+        text = src.read_text()
+        for block in re.findall(r'extern "C" \{(.*)\}\s*//\s*extern "C"', text, re.S):
+            exported.update(re.findall(r"^[\w\s\*]*?\b(gentun_\w+)\(", block, re.M))
+    assert exported == set(_build._SIGNATURES)
+
+
+def test_tuning_tool_times_every_config2_weight_gradient():
+    """The tuning tool's weight-gradient sweep covers config #2's 15 calls a
+    train step (6 shapes), as the train step runs them."""
+    from gentun_tpu_torch.tools import tune_pop_conv
+
+    shapes = tune_pop_conv.wgrad_shapes()
+    assert sum(calls for *_, calls in shapes) == 15
+    assert [(shared, c, f, h) for _, shared, c, f, h, _, _ in shapes] == [
+        (True, 3, 32, 32), (False, 32, 32, 32), (False, 32, 64, 16),
+        (False, 64, 64, 16), (False, 64, 128, 8), (False, 128, 128, 8)]
