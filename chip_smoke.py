@@ -56,15 +56,46 @@ E. Executors at config #2's width: ``fold_parallel=True`` gives the pop-20
    ``GeneticAlgorithm.run(2)`` at config #1's shape (S=(3,5), filters
    (20,50), pop 10, 28×28×1) on synthetic MNIST-shaped data; every
    individual must get a finite fitness.
+D. BASELINE config #5 at full width (S=(5,5,5), filters (64,128,256), dense
+   512, 100 classes, pop 50, batch 256, bf16, the proxy schedule), as
+   ``examples/torch_cifar100_deep.py`` runs it: ``RussianRouletteGA.run(1)``
+   of ``Population(GeneticCnnIndividual)`` on ``load_cifar100(n=10_000)``
+   (synthetic, 100 classes) with a ``Checkpointer``, telemetry spans on;
+   the kernels' launch counts are set to 0 just before it and read just
+   after.  Then the same run again from the checkpoint, and one timed
+   pop-50 call of the GA's population with the cap known.  A dispatch mode
+   that counts every aten op's convolutions runs over the GA and the
+   resume only, so the timed call carries no hook.  Gates: 50 finite
+   fitnesses with a mean above chance (0.01); both kernels launched in the
+   GA and no library convolution run; the resume reports generation 1 and
+   the same best genome; the timed call gives the GA's fitnesses bit for
+   bit, and two genomes of the first program give the same bits again as a
+   pop-2 batch.  Prints each program's wall and peak memory, whether
+   ``_chunked_by_cap`` learned a cap (a CUDA OOM) and which, the timed
+   call's wall, its train step and eval batch times (and the GA's), and
+   the cost-calibration gauges.
+K5. Both kernels at every conv shape of config #5's train step (bf16, batch
+   256) and eval forward (batch 1,024), at the slot count phase D's
+   programs ran (its learned cap, else 50), each held against the plain
+   version under ``TOLERANCE``, with kernel, plain, cuDNN grouped and bound
+   times and the calls per step.
+B. Config #5 under a ``device_budget`` that classifies it ``micro`` with
+   factor 2 (``param_bytes + act_bytes_per_example·128``): two of phase D's
+   genomes route one per call, unpadded, microbatch 2, with finite
+   fitnesses and ``microbatch_steps_total`` counting; each genome's fitness
+   is the same bits alone and routed beside the other; a budget of
+   ``param_bytes`` raises ``ValueError``.
 6. A summary line of the run as JSON.
 
 Then the card's ``nvidia-smi`` name and power limit, the
 ``{"kernels": [...]}`` line (each kernel's main-path launches, error and
-per-train-step times) and, last, ``{"ok": true, "device": {...}}``.
+per-train-step times at config #2, and under ``deep`` the same at config
+#5 with the launches of phase D's GA) and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -74,12 +105,22 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-
-NODES, FILTERS, DENSE, N_CLASSES = (3, 4, 5), (32, 64, 128), 256, 10
-POP, N_DATA = 20, 10_000
-PROXY = dict(
-    nodes=NODES, kernels_per_layer=FILTERS, batch_size=256, dense_units=DENSE,
-    compute_dtype="bfloat16", seed=0, kfold=2, epochs=(1,), learning_rate=(0.01,),
+sys.path.insert(0, REPO)
+try:
+    # Config #2's proxy cell (configuration, data, genomes, FLOPs) is
+    # defined once, in the benchmark, and driven here in phase 3.
+    from bench_torch import DENSE_UNITS as DENSE
+    from bench_torch import (FILTERS, N_CLASSES, N_DATA, NODES, POP, PROXY, cifar_data,
+                             random_population, schedule_flops)
+except ImportError:  # copied alone into a directory: main() refuses below
+    pass
+#: BASELINE config #5 as ``examples/torch_cifar100_deep.py`` runs it.
+DEEP_NODES, DEEP_FILTERS, DEEP_DENSE, DEEP_CLASSES = (5, 5, 5), (64, 128, 256), 512, 100
+DEEP_POP, DEEP_N = 50, 10_000
+DEEP = dict(
+    nodes=DEEP_NODES, kernels_per_layer=DEEP_FILTERS, kfold=2, epochs=(1,),
+    learning_rate=(0.01,), batch_size=256, dense_units=DEEP_DENSE, compute_dtype="bfloat16",
+    seed=0,
 )
 
 
@@ -87,41 +128,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def synthetic_cifar(n: int, seed: int = 0):
-    """CIFAR-10-shaped data: 10 class prototypes plus noise (32×32×3)."""
-    rng = np.random.default_rng(seed)
-    protos = rng.normal(size=(10, 32, 32, 3)).astype(np.float32)
-    y = rng.integers(0, 10, size=n).astype(np.int32)
-    x = protos[y] + 0.5 * rng.normal(size=(n, 32, 32, 3)).astype(np.float32)
-    return x, y
+def synthetic(n: int, shape_hwc, seed: int):
+    """Class prototypes plus noise, 10 classes (the port's ``synthetic_images``)."""
+    from gentun_tpu_torch.utils.datasets import synthetic_images
 
-
-def synthetic_mnist(n: int, seed: int = 1):
-    """MNIST-shaped data: 10 class prototypes plus noise (28×28×1)."""
-    rng = np.random.default_rng(seed)
-    protos = rng.normal(size=(10, 28, 28, 1)).astype(np.float32)
-    y = rng.integers(0, 10, size=n).astype(np.int32)
-    x = protos[y] + 0.5 * rng.normal(size=(n, 28, 28, 1)).astype(np.float32)
-    return x, y
-
-
-def random_population(nodes, pop: int, seed: int):
-    from gentun_tpu_torch.genes import genetic_cnn_genome
-
-    rng = np.random.default_rng(seed)
-    spec = genetic_cnn_genome(nodes)
-    return [spec.sample(rng) for _ in range(pop)]
-
-
-def forward_flops_per_image() -> float:
-    """Conv and dense multiply-adds ×2 for one image through the supergraph
-    (every node conv runs whatever the masks say)."""
-    h, w, c = 32, 32, 3
-    flops = 0.0
-    for k, f in zip(NODES, FILTERS):
-        flops += 2.0 * h * w * 9 * c * f + k * 2.0 * h * w * 9 * f * f
-        h, w, c = h // 2, w // 2, f
-    return flops + 2.0 * h * w * c * DENSE + 2.0 * DENSE * N_CLASSES
+    return synthetic_images(n, shape_hwc, 10, seed=seed)[:2]
 
 
 def check(ok: bool, what: str) -> None:
@@ -204,6 +215,18 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def err_and_scale(a, r, chunk: int = 1 << 26):
+    """(max |a - r|, max |r|) in float64, a chunk of elements at a time (an
+    eval output of config #5 is 6.7 GB in bf16)."""
+    a, r = a.reshape(-1), r.reshape(-1)
+    err = scale = 0.0
+    for i in range(0, a.numel(), chunk):
+        ad, rd = a[i:i + chunk].double(), r[i:i + chunk].double()
+        err = max(err, float((ad - rd).abs().max()))
+        scale = max(scale, float(rd.abs().max()))
+    return err, scale
+
+
 def conv_case(torch, dtype: str, role: str, shared: bool, slots: int,
               c: int, f: int, b: int, h: int, timed: bool, width=None):
     """One kernel call against its plain version (and cuDNN's grouped conv
@@ -221,7 +244,7 @@ def conv_case(torch, dtype: str, role: str, shared: bool, slots: int,
     x = rnd(b, c, h, wd) if shared else rnd(b, slots * c, h, wd)
     w = (rnd(slots, f, c, 3, 3).float() / (9 * c) ** 0.5).to(dt)
     bias = rnd(slots, f)
-    dy = rnd(b, slots * f, h, wd)
+    dy = rnd(b, slots * f, h, wd) if role != "fwd" else None  # drawn last: x, w, bias unchanged
     if role == "wgrad":  # a batch-mean loss's scale: dW and db of order 1
         dy = (dy.float() / (b * h * wd) ** 0.5).to(dt)
     lib_groups = 1 if shared else slots
@@ -232,7 +255,7 @@ def conv_case(torch, dtype: str, role: str, shared: bool, slots: int,
         plain = lambda: pop_conv.pop_conv3x3_reference(x, w, bias, shared)
         library = lambda: F.conv2d(x, w.view(slots * f, c, 3, 3), bias.view(-1), padding=1,
                                    groups=lib_groups)
-        nbytes = (x.numel() + w.numel() + bias.numel() + dy.numel()) * esize
+        nbytes = (x.numel() + w.numel() + bias.numel() + b * slots * f * h * wd) * esize
     elif role == "dgrad":
         turned = w.flip(-1, -2).transpose(1, 2).contiguous()
         kernel = lambda: pop_conv.pop_conv3x3_fwd(dy, turned, None)
@@ -258,8 +281,8 @@ def conv_case(torch, dtype: str, role: str, shared: bool, slots: int,
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         pairs = list(zip(got, want)) if role == "wgrad" else [(got, want)]
-        err = max(float((a.double() - r.double()).abs().max()) for a, r in pairs)
-        scale = max(float(r.double().abs().max()) for _, r in pairs)
+        err, scale = (max(v) for v in zip(*(err_and_scale(a, r) for a, r in pairs)))
+        del got, want, pairs
         tol = TOLERANCE[dtype, role]
         out = {"dtype": dtype, "role": role, "shape": [slots, c, f, b, h, wd, int(shared)],
                "max_abs_err": err, "rel_err": err / max(scale, 1e-300), "tol": tol}
@@ -355,6 +378,57 @@ def kernel_purity(torch):
     return rows
 
 
+def add_per_step(tot, r, n):
+    """Add ``n`` calls of row ``r`` to a kernel's per-step totals."""
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ops_ms", "bound_bytes_ms"):
+        tot[key] = tot.get(key, 0.0) + n * r[key]
+    by = "bound_{}_calls_ms".format("bytes" if r["bound_bytes_ms"] >= r["bound_ops_ms"] else "ops")
+    tot[by] = tot.get(by, 0.0) + n * r["bound_ms"]
+    tot["max_abs_err"] = max(tot.get("max_abs_err", 0.0), r["max_abs_err"])
+    tot["calls"] = tot.get("calls", 0) + n
+
+
+def step_kernels(torch, tag, nodes, filters, slots, dtype, per_step=None):
+    """Every kernel call of one train step (batch 256: forward, input
+    gradient, weight gradient) at each conv shape of the supergraph on
+    32×32×3 images, and in bf16 each eval forward (batch 1,024), timed and
+    held against the plain version; with ``per_step`` (bf16) the train
+    step's calls are summed into it per kernel.  Returns the rows."""
+    rows = []
+    for name, shared, c, f, h, n in conv_layers(nodes, filters, 32, 3):
+        for role in ("fwd", "wgrad") if shared else ("fwd", "dgrad", "wgrad"):
+            r = conv_case(torch, dtype, role, shared, slots, c, f, 256, h, timed=True)
+            r["layer"], r["per_step"] = name, n
+            rows.append(r)
+            log(f"[{tag}] {dtype:8s} {role:5s} {name:12s} C={c:3d} F={f:3d} {h}x{h} B=256 P={slots}: "
+                f"err {r['rel_err']:.2e} (tol {r['tol']:.0e}); kernel {r['ms']:.3f} ms, plain "
+                f"{r['plain_ms']:.3f}, cuDNN grouped {r['library_ms']:.3f}, "
+                f"bound {r['bound_ms']:.3f} ms (bytes {r['bound_bytes_ms']:.3f}, operations "
+                f"{r['bound_ops_ms']:.3f}) x{n} per step"
+                + (f"; {r['splits']} splits, partials {r['scratch_bytes'] / 1e6:.1f} MB "
+                   f"written and read" if role == "wgrad" else ""))
+            if per_step is not None:
+                add_per_step(per_step["pop_conv3x3_wgrad" if role == "wgrad" else "pop_conv3x3_fwd"],
+                             r, n)
+        if dtype == "bfloat16":
+            r = conv_case(torch, dtype, "fwd", shared, slots, c, f, 1024, h, timed=True)
+            r["layer"], r["per_step"] = name, 0
+            rows.append(r)
+            log(f"[{tag}] bfloat16 fwd   {name:12s} eval B=1024 P={slots}: err {r['rel_err']:.2e}; "
+                f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}, cuDNN grouped "
+                f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} ms x{n} per eval batch")
+    return rows
+
+
+def log_per_step(tag, what, per_step):
+    for kname, tot in per_step.items():
+        log(f"[{tag}] {kname} per {what} train step (bf16, {tot['calls']} calls): kernel "
+            f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f}, cuDNN {tot['library_ms']:.3f}, "
+            f"bound {tot['bound_ms']:.3f} ms ({tot.get('bound_bytes_calls_ms', 0.0):.3f} in calls "
+            f"bound by bytes, {tot.get('bound_ops_calls_ms', 0.0):.3f} by operations); "
+            f"max abs err {tot['max_abs_err']:.3e}")
+
+
 def phase_kernels(torch):
     """Every kernel at every conv shape of config #2's train step (pop 20,
     batch 256) and eval forward (batch 1,024), in bf16 and float32, and at
@@ -363,39 +437,9 @@ def phase_kernels(torch):
     float64 once; every role at ``EDGE_SHAPES``; then
     :func:`kernel_purity`.
     Returns per-step totals of the timed bf16 config #2 calls."""
-    rows = []
     per_step = {"pop_conv3x3_fwd": {}, "pop_conv3x3_wgrad": {}}
-    for dtype in ("bfloat16", "float32"):
-        for name, shared, c, f, h, n in conv_layers(NODES, FILTERS, 32, 3):
-            roles = ("fwd", "wgrad") if shared else ("fwd", "dgrad", "wgrad")
-            for role in roles:
-                r = conv_case(torch, dtype, role, shared, POP, c, f, 256, h, timed=True)
-                r["layer"], r["per_step"] = name, n
-                rows.append(r)
-                log(f"[K] {dtype:8s} {role:5s} {name:12s} C={c:3d} F={f:3d} {h}x{h} B=256 P={POP}: "
-                    f"err {r['rel_err']:.2e} (tol {r['tol']:.0e}); kernel {r['ms']:.3f} ms, plain "
-                    f"{r['plain_ms']:.3f}, cuDNN grouped {r['library_ms']:.3f}, "
-                    f"bound {r['bound_ms']:.3f} ms (bytes {r['bound_bytes_ms']:.3f}, operations "
-                    f"{r['bound_ops_ms']:.3f}) x{n} per step"
-                    + (f"; {r['splits']} splits, partials {r['scratch_bytes'] / 1e6:.1f} MB "
-                       f"written and read" if role == "wgrad" else ""))
-                if dtype == "bfloat16":
-                    kname = "pop_conv3x3_wgrad" if role == "wgrad" else "pop_conv3x3_fwd"
-                    tot = per_step[kname]
-                    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ops_ms",
-                                "bound_bytes_ms"):
-                        tot[key] = tot.get(key, 0.0) + n * r[key]
-                    by = "bound_{}_calls_ms".format(
-                        "bytes" if r["bound_bytes_ms"] >= r["bound_ops_ms"] else "ops")
-                    tot[by] = tot.get(by, 0.0) + n * r["bound_ms"]
-                    tot["max_abs_err"] = max(tot.get("max_abs_err", 0.0), r["max_abs_err"])
-                    tot["calls"] = tot.get("calls", 0) + n
-            if dtype == "bfloat16":
-                r = conv_case(torch, dtype, "fwd", shared, POP, c, f, 1024, h, timed=True)
-                rows.append(r)
-                log(f"[K] bfloat16 fwd   {name:12s} eval B=1024: err {r['rel_err']:.2e}; kernel "
-                    f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f}, cuDNN grouped "
-                    f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} ms")
+    rows = step_kernels(torch, "K", NODES, FILTERS, POP, "bfloat16", per_step)
+    rows += step_kernels(torch, "K", NODES, FILTERS, POP, "float32")
     for dtype in ("bfloat16", "float32"):
         for name, shared, c, f, h, _ in conv_layers((3, 5), (20, 50), 28, 1):
             for role in (("fwd", "wgrad") if shared else ("fwd", "dgrad", "wgrad")):
@@ -421,12 +465,18 @@ def phase_kernels(torch):
                 log(f"[K] edge {dtype} {role} S={slots} C={c} F={f} B={b} {h}x{wd}"
                     f"{' shared' if shared else ''}: err {r['rel_err']:.2e} (tol {r['tol']:.0e})")
     rows.extend(kernel_purity(torch))
-    for kname, tot in per_step.items():
-        log(f"[K] {kname} per config #2 train step (bf16, {tot['calls']} calls): kernel "
-            f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f}, cuDNN {tot['library_ms']:.3f}, "
-            f"bound {tot['bound_ms']:.3f} ms ({tot.get('bound_bytes_calls_ms', 0.0):.3f} in calls "
-            f"bound by bytes, {tot.get('bound_ops_calls_ms', 0.0):.3f} by operations)")
+    log_per_step("K", "config #2", per_step)
     return per_step, rows
+
+
+def phase_kernels_deep(torch, slots: int):
+    """Both kernels at every conv shape of config #5's train step and eval
+    forward (bf16), at ``slots`` (the width phase D's programs ran), each
+    held against its plain version.  Returns per-step totals."""
+    per_step = {"pop_conv3x3_fwd": {}, "pop_conv3x3_wgrad": {}}
+    step_kernels(torch, "K5", DEEP_NODES, DEEP_FILTERS, slots, "bfloat16", per_step)
+    log_per_step("K5", f"config #5 (P={slots})", per_step)
+    return per_step
 
 
 def _max_rel(a, b) -> float:
@@ -455,7 +505,7 @@ def phase_parity(torch, card):
     genomes = random_population(NODES, 4, seed=3)
     genomes[0] = {**genomes[0], "S_1": (0, 0, 0)}  # an empty stage: the pass-through
     hashes = cnn._genome_hashes(genomes)
-    x_np, y_np = synthetic_cifar(32, seed=4)
+    x_np, y_np = synthetic(32, (32, 32, 3), seed=4)
     x = torch.from_numpy(np.ascontiguousarray(x_np.transpose(0, 3, 1, 2)))
     y = torch.from_numpy(y_np.astype(np.int64))
     cpu = torch.device("cpu")
@@ -513,7 +563,7 @@ def phase_parity(torch, card):
     log(f"[2] grads, float32 card vs float64: worst leaf {worst32[1]} |Δ|/|g| = {worst32[0]:.3e} "
         f"(gate 1e-2; the CPU's float32 on that leaf: {worst32[2]:.3e})")
 
-    xs, ys = synthetic_cifar(512, seed=5)
+    xs, ys = synthetic(512, (32, 32, 3), seed=5)
     cfg = dict(PROXY, compute_dtype="float32", dropout_rate=0.0, batch_size=64)
     on_cpu = GeneticCnnModel.cross_validate_population(xs, ys, genomes, **cfg, mesh="cpu")
     on_card = GeneticCnnModel.cross_validate_population(xs, ys, genomes, **cfg, mesh="auto")
@@ -575,7 +625,6 @@ def phase_leaves(torch, x, y, genomes):
 
 
 def phase_main(torch, x, y, genomes):
-    from gentun_tpu_torch.models import cnn
     from gentun_tpu_torch.models.cnn import GeneticCnnModel
     from gentun_tpu_torch.telemetry import spans
 
@@ -608,9 +657,7 @@ def phase_main(torch, x, y, genomes):
 
     fold = N_DATA // PROXY["kfold"]
     steps = (N_DATA - fold) // PROXY["batch_size"] * sum(PROXY["epochs"])
-    _, n_val_padded = cnn._eval_batch_size(PROXY["batch_size"], fold)
-    flops = POP * PROXY["kfold"] * forward_flops_per_image() * (
-        steps * PROXY["batch_size"] * 3.0 + n_val_padded)
+    flops = schedule_flops(PROXY, POP, N_DATA)
     result = {
         "wall_s": wall,
         "warmup_s": warm_s,
@@ -719,7 +766,7 @@ def phase_executors(x, y, genomes, batches):
 def phase_ga():
     from gentun_tpu_torch import GeneticAlgorithm, GeneticCnnIndividual, Population
 
-    x, y = synthetic_mnist(2_000)
+    x, y = synthetic(2_000, (28, 28, 1), seed=1)
     params = dict(nodes=(3, 5), kernels_per_layer=(20, 50), kfold=2, epochs=(1,),
                   learning_rate=(0.01,), batch_size=128, seed=0)
     pop = Population(GeneticCnnIndividual, x_train=x, y_train=y, size=10, seed=0,
@@ -731,6 +778,261 @@ def phase_ga():
     check(all(np.isfinite(fits)), "finite GA fitnesses")
     log(f"[5] GA 2 generations, pop 10, S=(3,5): {wall:.2f} s, best fitness "
         f"{best.get_fitness():.4f}, fitnesses {np.round(fits, 4).tolist()}")
+
+
+def conv_counter():
+    """A dispatch mode that counts every aten convolution op run inside it
+    (the port's kernels are no aten op; a library conv would be one)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class ConvCounter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.convs = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func)
+            if "conv" in name:
+                self.convs[name] = self.convs.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    return ConvCounter()
+
+
+def spy_programs(record, peaks=None):
+    """Wrap ``GeneticCnnModel._cross_validate_population_one`` (one program
+    of the batched trainer) so each call appends (genomes, config, seconds,
+    accuracies or the exception's type) to ``record``, and with ``peaks``
+    its peak device memory to ``peaks``; returns the undo."""
+    import torch
+
+    from gentun_tpu_torch.models.cnn import GeneticCnnModel
+
+    real = GeneticCnnModel.__dict__["_cross_validate_population_one"]
+
+    def spy(cls, x, y, genomes, **cfg):
+        if peaks is not None:
+            torch.cuda.reset_peak_memory_stats()
+        t0, out = time.monotonic(), "error"
+        try:
+            out = real.__func__(cls, x, y, genomes, **cfg)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            out = "OutOfMemoryError"
+            raise
+        finally:
+            record.append((list(genomes), cfg, time.monotonic() - t0, out))
+            if peaks is not None:
+                peaks.append(torch.cuda.max_memory_allocated())
+        return out
+
+    GeneticCnnModel._cross_validate_population_one = classmethod(spy)
+    return lambda: setattr(GeneticCnnModel, "_cross_validate_population_one", real)
+
+
+def span_times(recs, eval_bs: int, n_val: int):
+    """Train-step and eval-batch ms by program width from the executor's
+    spans (they carry the width); an attempt that ran out of memory in eval
+    leaves train spans only."""
+    step_ms, eval_ms = {}, {}
+    for width in sorted({r["attrs"]["pop"] for r in recs
+                         if r.get("kind") in ("train", "eval") and "pop" in r.get("attrs", {})}):
+        mine = [r for r in recs if r.get("attrs", {}).get("pop") == width]
+        train = [r for r in mine if r.get("kind") == "train"]
+        evals = [r for r in mine if r.get("kind") == "eval"]
+        if train:
+            step_ms[width] = 1e3 * sum(r["dur_s"] for r in train) / sum(
+                r["attrs"]["steps"] for r in train)
+        if evals:
+            eval_ms[width] = 1e3 * sum(r["dur_s"] for r in evals) / (len(evals) * (n_val // eval_bs))
+    return step_ms, eval_ms
+
+
+def phase_deep(torch, workdir: str):
+    """BASELINE config #5 through the port's GA entry point at full width
+    (see the module docstring, phase D).  Returns the result, the GA's
+    kernel launches, the learned pop cap (or None) and two genomes of the
+    first program."""
+    from gentun_tpu_torch import GeneticCnnIndividual, Population, RussianRouletteGA
+    from gentun_tpu_torch.models import cnn
+    from gentun_tpu_torch.models.cnn import GeneticCnnModel
+    from gentun_tpu_torch.ops import pop_conv
+    from gentun_tpu_torch.telemetry import spans
+    from gentun_tpu_torch.telemetry.registry import get_registry
+    from gentun_tpu_torch.utils import Checkpointer, EvalTimer
+    from gentun_tpu_torch.utils.datasets import load_cifar100
+
+    x, y, meta = load_cifar100(n=DEEP_N)
+    log(f"[D] data: {meta['source']}, {len(x):,} images {x.shape[1:]}, "
+        f"{int(y.max()) + 1} classes")
+    path = os.path.join(workdir, "deep_checkpoint.json")
+    if os.path.exists(path):
+        os.remove(path)
+    cap_key = cnn._oom_cap_key(cnn._normalize_config(x, y, dict(DEEP)))
+    cnn._POP_PROGRAM_CAP.pop(cap_key, None)
+
+    def search():
+        pop = Population(GeneticCnnIndividual, x_train=x, y_train=y, size=DEEP_POP, seed=0,
+                         additional_parameters=dict(DEEP))
+        return RussianRouletteGA(pop, seed=0)
+
+    programs, peaks, counter, timer = [], [], conv_counter(), EvalTimer()
+    undo = spy_programs(programs, peaks)
+    get_registry().reset()
+    spans.enable()
+    try:
+        # The GA and its resume under the dispatch mode that counts library
+        # convolutions (a Python hook on every aten op: their walls carry it).
+        with spans.capture() as ga_recs, counter:
+            for k in pop_conv.LAUNCHES:
+                pop_conv.LAUNCHES[k] = 0
+            with timer.measure(DEEP_POP, label="config #5, 1 generation"):
+                ga = search()
+                best = ga.run(1, checkpointer=Checkpointer(path))
+            launches = dict(pop_conv.LAUNCHES)
+            first_programs = len(programs)
+            t0 = time.monotonic()
+            resumed = search()
+            best2 = resumed.run(1, checkpointer=Checkpointer(path))
+            resume_s = time.monotonic() - t0
+        # The cell's numbers: one pop-50 call of the GA's last population
+        # with the cap known, without the dispatch mode.
+        genes = [ind.get_genes() for ind in ga.population]
+        timed_from = len(programs)
+        with spans.capture() as recs:
+            t0 = time.monotonic()
+            again50 = GeneticCnnModel.cross_validate_population(x, y, genes, **DEEP)
+            torch.cuda.synchronize()
+            call_s = time.monotonic() - t0
+    finally:
+        spans.disable()
+        undo()
+    cap = cnn._POP_PROGRAM_CAP.get(cap_key)
+    gauges = {f"{g['labels']['size_class']}/{g['labels']['source']}": g["value"]
+              for g in get_registry().snapshot()["gauges"]
+              if g["name"] == "genome_cost_calibration"}
+    for i, ((genomes, cfg, secs, out), top) in enumerate(zip(programs, peaks)):
+        part = "GA" if i < first_programs else ("resume" if i < timed_from else "timed call")
+        log(f"[D] {part} program: {len(genomes)} genomes (pop_padding "
+            f"{cfg.get('pop_padding', True)}), {secs:.3f} s, peak memory {top / 2**30:.2f} GiB, "
+            f"{'CUDA out of memory' if isinstance(out, str) else 'done'}")
+    fold = DEEP_N // DEEP["kfold"]
+    eval_bs, n_val = cnn._eval_batch_size(DEEP["batch_size"], fold)
+    step_ms, eval_ms = span_times(recs, eval_bs, n_val)
+    ga_step_ms, ga_eval_ms = span_times(ga_recs, eval_bs, n_val)
+    fits = np.array([ind.get_fitness() for ind in ga.population], dtype=np.float64)
+    trained = sum(len(g) for g, _c, _s, o in programs[:first_programs] if not isinstance(o, str))
+    timed_peak = max(peaks[timed_from:])
+    result = {
+        "ga_wall_s": timer.records[0]["wall_s"],
+        "ga_trained": trained,
+        "ga_individuals_per_hour": trained / timer.records[0]["wall_s"] * 3600.0,
+        "resume_wall_s": resume_s,
+        "call_wall_s": call_s,
+        "call_individuals_per_hour": DEEP_POP / call_s * 3600.0,
+        "programs": [(len(g), secs, top, "oom" if isinstance(o, str) else "ok")
+                     for (g, _c, secs, o), top in zip(programs, peaks)],
+        "peak_mem_bytes": max(peaks),
+        "call_peak_mem_bytes": timed_peak,
+        "learned_cap": cap,
+        "step_ms_by_width": step_ms,
+        "eval_batch_ms_by_width": eval_ms,
+        "ga_step_ms_by_width": ga_step_ms,
+        "ga_eval_batch_ms_by_width": ga_eval_ms,
+        "fitness_mean": float(fits.mean()),
+        "best_fitness": best.get_fitness(),
+        "library_convs": counter.convs,
+        "launches": launches,
+        "calibration": gauges,
+    }
+    log(f"[D] GA 1 generation, pop {DEEP_POP}, S={DEEP_NODES}, filters {DEEP_FILTERS}: "
+        f"{result['ga_wall_s']:.3f} s in {first_programs} programs (library-conv counter on), "
+        f"{trained} genomes trained ({result['ga_individuals_per_hour']:.1f} individuals/hour); "
+        f"peak memory {max(peaks) / 2**30:.2f} GiB; learned pop cap {cap} "
+        f"({'a CUDA OOM split the population' if cap else 'no CUDA OOM'})")
+    log(f"[D] kernel launches in the GA: {launches}")
+    log(f"[D] timed pop-{DEEP_POP} call, cap known, counter off: {call_s:.3f} s "
+        f"({result['call_individuals_per_hour']:.1f} individuals/hour), peak memory "
+        f"{timed_peak / 2**30:.2f} GiB")
+    for tag, steps_, evals_ in (("timed call", step_ms, eval_ms), ("GA", ga_step_ms, ga_eval_ms)):
+        for width in sorted(steps_):
+            ev = f"{evals_[width]:.3f} ms" if width in evals_ else "none finished"
+            log(f"[D] {tag}, P={width}: train step {steps_[width]:.3f} ms, eval batch of "
+                f"{eval_bs:,} {ev} (telemetry spans, device synchronised per span)")
+    log(f"[D] fitnesses (mean {fits.mean():.4f}, chance 0.01): {np.round(fits, 4).tolist()}")
+    log(f"[D] cost calibration gauges: {json.dumps(gauges)}")
+    log(f"[D] library convolution ops in the GA and resume: {counter.convs or 'none'}")
+    log(f"[D] resumed from the checkpoint: generation {resumed.generation}, best "
+        f"{best2.get_fitness():.4f} vs {best.get_fitness():.4f} ({resume_s:.3f} s)")
+    check(len(fits) == DEEP_POP and bool(np.isfinite(fits).all()), "50 finite config #5 fitnesses")
+    check(fits.mean() > 1.0 / DEEP_CLASSES, "config #5 mean fitness above chance")
+    for k, n in launches.items():
+        check(n > 0, f"{k} launched in config #5's GA")
+    check(not counter.convs, f"no library convolution in phase D: {counter.convs}")
+    check(resumed.generation == 1 and best2.get_genes() == best.get_genes()
+          and best2.get_fitness() == best.get_fitness(), "resume reports generation 1, same best")
+    # Purity: the timed call re-measures the GA's population bit for bit,
+    # and two genomes of the first finished program give the same bits as a
+    # pop-2 batch (bucket 2).
+    rerun = float(np.abs(np.asarray(again50, dtype=np.float64) - fits).max())
+    done = next((g, o) for g, _c, _s, o in programs if not isinstance(o, str) and len(g) >= 2)
+    pair = done[0][:2]
+    again = GeneticCnnModel.cross_validate_population(x, y, pair, **DEEP)
+    witness = float(np.abs(again - done[1][:2]).max())
+    log(f"[D] purity: the timed call vs the GA's fitnesses: max|Δfitness| = {rerun}; 2 genomes "
+        f"of a {len(done[0])}-genome program again as a pop-2 batch: max|Δfitness| = {witness}")
+    check(rerun == 0.0, f"config #5 timed call re-measures the GA's fitnesses: {rerun}")
+    check(witness == 0.0, f"config #5 purity at width {len(done[0])} vs 2: {witness}")
+    result["purity_max_abs_diff"] = max(rerun, witness)
+    return result, launches, (cap or DEEP_POP), (x, y, pair)
+
+
+def phase_budget(torch, x, y, pair):
+    """Config #5 under a ``micro`` budget (see the module docstring, phase B)."""
+    from gentun_tpu_torch.models import cnn
+    from gentun_tpu_torch.models.cnn import GeneticCnnModel
+    from gentun_tpu_torch.parallel.mesh import cnn_genome_cost
+    from gentun_tpu_torch.telemetry.registry import get_registry
+
+    cost = cnn_genome_cost(DEEP_NODES, DEEP_FILTERS, (32, 32, 3), DEEP_DENSE, DEEP_CLASSES,
+                           "bfloat16")
+    budget = cost.param_bytes + cost.act_bytes_per_example * 128
+    cls = cnn._genome_size_class(cnn._normalize_config(x, y, dict(DEEP, device_budget=budget)))
+    log(f"[B] cost model: {cost.param_bytes:,} param bytes + {cost.act_bytes_per_example:,} "
+        f"activation bytes an example; budget {budget:,} bytes → {cls}")
+    check(cls == ("micro", 2), f"the budget classifies config #5 micro, factor 2: {cls}")
+    reg = get_registry()
+    steps0 = reg.counter("microbatch_steps_total").value
+    programs = []
+    undo = spy_programs(programs)
+    try:
+        t0 = time.monotonic()
+        routed = GeneticCnnModel.cross_validate_population(x, y, pair, **DEEP, device_budget=budget)
+        routed_s = time.monotonic() - t0
+        alone = np.concatenate([
+            GeneticCnnModel.cross_validate_population(x, y, [g], **DEEP, device_budget=budget)
+            for g in pair])
+    finally:
+        undo()
+    shapes = [(len(g), c.get("pop_padding"), c.get("microbatch")) for g, c, _s, _o in programs]
+    steps = reg.counter("microbatch_steps_total").value - steps0
+    witness = float(np.abs(routed - alone).max())
+    log(f"[B] 2 genomes routed ({routed_s:.3f} s): programs (genomes, pop_padding, microbatch) "
+        f"{shapes}; fitnesses {np.round(routed, 4).tolist()}; microbatch passes counted {steps:g}")
+    log(f"[B] purity: each alone vs routed beside the other: max|Δfitness| = {witness}")
+    check(shapes == [(1, False, 2)] * 4, f"micro route: one genome per program: {shapes}")
+    check(bool(np.isfinite(routed).all()), "finite micro-route fitnesses")
+    check(steps > 0, "microbatch_steps_total counts the micro route's passes")
+    check(witness == 0.0, f"micro-route purity: {witness}")
+    try:
+        GeneticCnnModel.cross_validate_population(x, y, pair[:1], **DEEP,
+                                                  device_budget=cost.param_bytes)
+    except ValueError as e:
+        log(f"[B] budget of param_bytes refused: {str(e)[:90]}...")
+    else:
+        check(False, "a budget of param_bytes raises ValueError")
+    return {"budget": budget, "programs": shapes, "fitness": routed.tolist(),
+            "microbatch_passes": steps, "purity_max_abs_diff": witness, "wall_s": routed_s}
 
 
 KERNEL_SOURCE = "gentun_tpu_torch/csrc/pop_conv3x3.cu"
@@ -748,13 +1050,16 @@ def replaces(source: str):
     return out
 
 
-def kernels_line(per_step, launches):
+def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots):
     """The ``{"kernels": [...]}`` record: each kernel's launches on the main
     path (phase 3) and, from phase K, its error against the plain version and
-    its times summed over the calls of one config #2 train step (bf16)."""
+    its times summed over the calls of one config #2 train step (bf16); under
+    ``deep`` the same for config #5 (the launches of phase D's GA, phase K5's
+    times)."""
     where = replaces(KERNEL_SOURCE)
     out = []
     for name, tot in per_step.items():
+        deep = deep_per_step[name]
         out.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": where[name], "launches": launches[name],
@@ -763,6 +1068,15 @@ def kernels_line(per_step, launches):
             "bound_by": "bytes" if tot["bound_bytes_ms"] >= tot["bound_ops_ms"] else "operations",
             "library_ms": tot["library_ms"],
             "per": f"config #2 train step, bf16, pop {POP}, batch 256: {tot['calls']} calls",
+            "deep": {
+                "launches": deep_launches[name], "max_abs_err": deep["max_abs_err"],
+                "ms": deep["ms"], "plain_ms": deep["plain_ms"], "bound_ms": deep["bound_ms"],
+                "bound_by": ("bytes" if deep["bound_bytes_ms"] >= deep["bound_ops_ms"]
+                             else "operations"),
+                "library_ms": deep["library_ms"],
+                "per": f"config #5 train step, bf16, pop {deep_slots}, batch 256: "
+                       f"{deep['calls']} calls",
+            },
         })
     return {"kernels": out}
 
@@ -773,7 +1087,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
     try:
         import gentun_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -785,7 +1098,7 @@ def main() -> int:
     phase_build()
     name, smi = phase_device(torch)
     per_step, _ = phase_kernels(torch)
-    x, y = synthetic_cifar(N_DATA)
+    x, y = cifar_data()
     genomes = random_population(NODES, POP, seed=2)
     leaves = phase_leaves(torch, x, y, genomes)
     phase_parity(torch, torch.device("cuda"))
@@ -799,12 +1112,20 @@ def main() -> int:
     purity, batches = phase_purity(x, y, genomes, bf16_calls)
     executors = phase_executors(x, y, genomes, batches)
     phase_ga()
+    del x, y, genomes, bf16_calls, batches
+    deep, deep_launches, deep_slots, (x5, y5, pair) = phase_deep(
+        torch, os.path.join(REPO, "build", "chip_smoke"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    deep_per_step = phase_kernels_deep(torch, deep_slots)
+    budget = phase_budget(torch, x5, y5, pair)
     summary = {"main_path": main_result, "launches": launches, "purity_max_abs_diff": purity,
-               "differing_grad_leaves": leaves, "executors": executors,
+               "differing_grad_leaves": leaves, "executors": executors, "deep": deep,
+               "deep_launches": deep_launches, "budget": budget,
                "card": smi, "total_s": time.monotonic() - t_start}
-    log(f"[6] summary: {json.dumps(summary)}")
+    log(f"[6] summary: {json.dumps(summary, default=str)}")
     print(smi)
-    print(json.dumps(kernels_line(per_step, launches)))
+    print(json.dumps(kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

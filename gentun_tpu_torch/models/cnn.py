@@ -39,9 +39,10 @@ fitness = mean validation accuracy.  How it runs differs:
   learned cap=1 route of ``_chunked_by_cap`` runs unpadded, still at the
   same per-slot shapes).
 
-Left out of this slice (it raises ``NotImplementedError`` where a knob asks
-for it): the big-genome routing that ``device_budget`` turns on, and
-multi-device placement.
+A ``device_budget`` that the cost model says one genome's program cannot
+fit routes the batch one genome per call with gradient accumulation (the
+``micro`` size class).  Left out of this slice (it raises
+``NotImplementedError`` where a knob asks for it): multi-device placement.
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ from ..telemetry import lineage as _lineage
 from ..telemetry import spans as _tele
 from ..telemetry.registry import get_registry as _get_registry
 from ..utils.device_state import mark_backend_used
+from ..utils.kernel_cache import default_cache_dir, enable_compilation_cache, run_publish_hooks
 from .generic import GentunModel
 
 __all__ = ["MaskedGeneticCnn", "GeneticCnnModel", "exact_numerics", "params_from_reference"]
@@ -445,6 +447,21 @@ def _device_span(kind: str, t0: float, device: torch.device, attrs: Dict[str, An
     _tele.record_span(kind, t0, time.monotonic() - t0, attrs=attrs)
 
 
+def _check_initial_params(
+    named: Mapping[str, torch.Tensor], params: Mapping[str, torch.Tensor], kfold: int
+) -> None:
+    """Refuse initial params that do not fit the model: every leaf must be
+    ``(≥ kfold, *the parameter's shape)`` in the parameter's dtype, or
+    ``copy_`` would broadcast it silently."""
+    for name, p in named.items():
+        leaf = params[name]
+        if (tuple(leaf.shape[1:]) != tuple(p.shape) or leaf.shape[0] < kfold
+                or leaf.dtype != p.dtype):
+            raise ValueError(
+                f"initial param {name!r} has shape {tuple(leaf.shape)} {leaf.dtype}; "
+                f"the model needs ({kfold}, *{tuple(p.shape)}) {p.dtype}")
+
+
 def _run_segmented(
     cfg: Dict[str, Any],
     model: MaskedGeneticCnn,
@@ -478,6 +495,7 @@ def _run_segmented(
     dropout = cfg["dropout_rate"] > 0.0
     tele = _tele.enabled()
     named = dict(model.named_parameters())
+    _check_initial_params(named, params, kfold)
     accs = []
     for f in range(kfold):
         with torch.no_grad():
@@ -849,6 +867,51 @@ def _fit_microbatch(cfg: Dict[str, Any], batch_size: int, steps: int) -> None:
         _get_registry().counter("microbatch_steps_total").inc(steps * micro)
 
 
+def _record_cost_calibration(
+    cfg: Dict[str, Any], params: Mapping[str, torch.Tensor], n_slots: int, device: torch.device
+) -> None:
+    """Record the cost model's prediction beside what this call built, as
+    ``genome_cost_calibration{size_class,source}`` gauges:
+
+    - ``predicted_param_bytes`` and ``predicted_act_bytes_batch``: the cost
+      model's claim (params ×3 in float32; one full batch of activations in
+      the compute dtype);
+    - ``measured_param_bytes``: the bytes of the freshly drawn initial
+      params ×3 (params, momentum, grads: the model's convention), over the
+      ``(kfold, P)`` slots they stack;
+    - ``device_bytes_in_use``: the CUDA allocator's bytes in use
+      (``torch.cuda.memory_stats``); absent on the CPU.
+
+    Diagnostics only: a failure here is logged and never stops an evaluation.
+    """
+    try:
+        size_class, _ = _genome_size_class(cfg)
+        cost = cnn_genome_cost(
+            cfg["nodes"],
+            cfg["kernels_per_layer"],
+            cfg["input_shape"],
+            cfg["dense_units"],
+            cfg["n_classes"],
+            cfg["compute_dtype"],
+            bool(cfg["stage_exit_conv"]),
+        )
+        reg = _get_registry()
+
+        def gauge(source: str, value: float) -> None:
+            reg.gauge("genome_cost_calibration", size_class=size_class, source=source).set(
+                float(value))
+
+        gauge("predicted_param_bytes", cost.param_bytes)
+        gauge("predicted_act_bytes_batch", cost.act_bytes_per_example * int(cfg["batch_size"]))
+        leaf_bytes = sum(t.numel() * t.element_size() for t in params.values())
+        gauge("measured_param_bytes", 3 * leaf_bytes / max(1, n_slots))
+        if device.type == "cuda":
+            stats = torch.cuda.memory_stats(device)
+            gauge("device_bytes_in_use", stats["allocated_bytes.all.current"])
+    except Exception:  # noqa: BLE001 - diagnostics must never stop an evaluation
+        logger.debug("cost calibration skipped", exc_info=True)
+
+
 def _resolve_device(mesh) -> torch.device:
     """The device an evaluation runs on.
 
@@ -873,8 +936,12 @@ def _resolve_device(mesh) -> torch.device:
 
 
 def _prepare_population_setup(cfg: Dict[str, Any], genomes: Sequence[Mapping[str, Any]]):
-    """Resolve the device, pad the population to its bucket, stack the genome
-    masks onto the device and build the module."""
+    """Point the kernel build at ``cache_dir``, resolve the device, pad the
+    population to its bucket, stack the genome masks onto the device and
+    build the module."""
+    cache_dir = cfg["cache_dir"]
+    enable_compilation_cache(default_cache_dir() if cache_dir is None else cache_dir)
+    run_publish_hooks()
     device = _resolve_device(cfg["mesh"])
     if cfg["pop_padding"]:
         genomes, n_real = pad_population(genomes, pop_bucket(len(genomes)))
@@ -901,15 +968,15 @@ def _prepare_population_setup(cfg: Dict[str, Any], genomes: Sequence[Mapping[str
     return device, genomes, n_real, masks, model, _genome_hashes(genomes)
 
 
-def _refuse_big_genomes(cfg: Dict[str, Any]) -> None:
-    """Raise where ``device_budget`` routes a config off the wide-pop path:
-    that routing is not ported yet, and nothing else runs in its place."""
-    size_class, _ = _genome_size_class(cfg)
-    if size_class != SIZE_SMALL:
-        raise NotImplementedError(
-            f"device_budget puts this config in size class {size_class!r}; "
-            "big-genome routing is not ported yet"
-        )
+def _one_genome_per_call(run_one, genomes, config: Dict[str, Any], micro: int) -> np.ndarray:
+    """The big-genome route: the cost model says one program cannot hold
+    the population, so each genome runs alone, unpadded (the 1-wide program
+    is the intended shape here, not an OOM fallback), with the size class's
+    microbatch factor.  No ``_chunked_by_cap``: it splits populations, and
+    this program is already one genome wide."""
+    sub = {**config, "pop_padding": False, "microbatch": micro}
+    outs = [run_one([g], **sub) for g in genomes]
+    return np.concatenate(outs) if outs else np.zeros((0,), dtype=np.float32)
 
 
 class GeneticCnnModel(GentunModel):
@@ -928,15 +995,20 @@ class GeneticCnnModel(GentunModel):
       runs there.  There is no multi-device placement yet.
     - ``segment_steps``: the length of one segment of the host loop (the
       unit a telemetry ``train`` span covers); validated as in the reference.
-    - ``cache_dir``: accepted and unused: the conv kernels build once into
-      ``build/kernels/`` of the checkout (``ops/_build.py``).
+    - ``cache_dir``: the directory the conv kernels' library is built into
+      and loaded from (``utils/kernel_cache.py``); ``None`` means
+      ``build/kernels/`` of the checkout.
     - ``fold_parallel``: accepted for the reference's API; the folds run one
       after another as without it, and a fitness is the same bits either
       way (``PERF.md`` records why the port has no fused-folds executor).
     - ``warm_start``: the reference's process-local warm-start bank; off
       with ``fold_parallel``, as in the reference.
-    - a ``device_budget`` that routes a genome off the wide-pop path raises
-      ``NotImplementedError``.
+    - ``device_budget``: bytes one device may spend on one genome.  The port
+      runs on one device, where the cost model's ``big`` class (the batch
+      sharded over a data axis) cannot occur: a config over the budget is
+      ``micro``, one genome per call with the smallest gradient-accumulation
+      factor that fits; one whose parameter state and one example exceed it
+      raises ``ValueError``.
 
     Data contract: ``x_train``/``y_train`` are treated as immutable; the
     permuted dataset is cached on the device across ``evaluate()`` calls,
@@ -1036,7 +1108,12 @@ class GeneticCnnModel(GentunModel):
             ]
             return np.mean(per_rep, axis=0, dtype=np.float64).astype(np.float32)
         cfg0 = _normalize_config(x_train, y_train, config)
-        _refuse_big_genomes(cfg0)
+        size_class, micro = _genome_size_class(cfg0)
+        if size_class != SIZE_SMALL:
+            return _one_genome_per_call(
+                lambda gs, **sub: cls._cross_validate_population_one(x_train, y_train, gs, **sub),
+                genomes, config, micro,
+            )
         return _chunked_by_cap(
             lambda gs: cls._cross_validate_population_one(x_train, y_train, gs, **config),
             list(genomes),
@@ -1097,6 +1174,7 @@ class GeneticCnnModel(GentunModel):
             )
 
         params = _init_population_params(model, kfold, cfg["seed"], hashes)
+        _record_cost_calibration(cfg, params, kfold * len(genomes), device)
         x_dev, y_dev = _device_dataset(x_train, y_train, x, y, perm, cfg, device)
         # Parent→child weight inheritance (multi-fidelity ladder): overlay
         # each real slot's own lower-rung trained params where shapes match,
@@ -1144,7 +1222,13 @@ class GeneticCnnModel(GentunModel):
             ]
             return np.mean(per_rep, axis=0, dtype=np.float64).astype(np.float32)
         cfg0 = _normalize_config(x_train, y_train, config)
-        _refuse_big_genomes(cfg0)
+        size_class, micro = _genome_size_class(cfg0)
+        if size_class != SIZE_SMALL:
+            return _one_genome_per_call(
+                lambda gs, **sub: cls._train_and_score_one(
+                    x_train, y_train, x_test, y_test, gs, **sub),
+                genomes, config, micro,
+            )
         return _chunked_by_cap(
             lambda gs: cls._train_and_score_one(x_train, y_train, x_test, y_test, gs, **config),
             list(genomes),
@@ -1194,6 +1278,7 @@ class GeneticCnnModel(GentunModel):
         val_weight = np.concatenate([np.ones(n_te, np.float32), np.zeros(pad, np.float32)])[None]
 
         params = _init_population_params(model, 1, cfg["seed"], hashes, domain=_HOLDOUT_DOMAIN)
+        _record_cost_calibration(cfg, params, len(genomes), device)
         # The combined array is built per call: a holdout runs once per
         # search, so it is not cached.
         x_full = torch.from_numpy(np.concatenate([x_tr, x_te])).to(device)

@@ -3,11 +3,12 @@
 The sources are ``gentun_tpu_torch/csrc/*.cu`` and ``*.cuh``.  On the first
 call of :func:`library` in a process, ``nvcc`` compiles them for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into
-``build/kernels/libgentun_kernels_<hash>.so`` at the root of the checkout,
-where ``<hash>`` covers the sources and the flags, so an edited source builds
-anew and an unchanged one is loaded as it is.  The library has a plain C
-interface and is loaded with ``ctypes``: pointers and the stream pass as
-``c_void_p``.  Importing this module needs neither ``nvcc`` nor a card; only
+``build/kernels/libgentun_kernels_<hash>.so`` at the root of the checkout
+(or the directory :func:`use_build_dir` names: ``utils/kernel_cache.py``
+manages that knob), where ``<hash>`` covers the sources and the flags, so an
+edited source builds anew and an unchanged one is loaded as it is.  The
+library has a plain C interface and is loaded with ``ctypes``: pointers and
+the stream pass as ``c_void_p``.  Importing this module needs neither ``nvcc`` nor a card; only
 :func:`library` does.
 """
 
@@ -30,6 +31,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_build_dir: Path = BUILD_DIR
 #: The compiler's output of the build this process ran (``-Xptxas -v``:
 #: registers, shared memory and spills per kernel); empty when it loaded a
 #: library built earlier.
@@ -59,13 +61,28 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def build_dir() -> Path:
+    """The directory the next build writes to and loads from."""
+    return _build_dir
+
+
+def use_build_dir(path) -> Path:
+    """Build into (and load from) ``path`` from now on; returns it.  A
+    library this process already loaded stays loaded: it is the build of
+    the same sources."""
+    global _build_dir
+    with _lock:
+        _build_dir = Path(path)
+    return _build_dir
+
+
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libgentun_kernels_{h.hexdigest()[:16]}.so"
+    return _build_dir / f"libgentun_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -79,7 +96,7 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     cu = [str(p) for p in _sources() if p.suffix == ".cu"]
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]

@@ -21,6 +21,7 @@ from gentun_tpu.ops.dag import stack_genome_masks as ref_stack
 from gentun_tpu_torch.models import cnn as port_cnn
 from gentun_tpu_torch.models.cnn import GeneticCnnModel, MaskedGeneticCnn, params_from_reference
 from gentun_tpu_torch.ops.dag import stack_genome_masks
+from gentun_tpu_torch.parallel.mesh import cnn_genome_cost
 
 CPU = torch.device("cpu")
 
@@ -268,34 +269,88 @@ def test_microbatch_averages_slice_gradients():
         torch.testing.assert_close(b, (g0 + g1) / 2, rtol=0, atol=0, msg=name)
 
 
-def _inject_reference_init(monkeypatch, genomes_by_pop, cfg, input_shape):
-    """Make the port's init return the reference's draws for the same genomes."""
+def _inject_reference_init(monkeypatch, genomes, cfg, input_shape, n_classes=4):
+    """Make the port's init return the reference's draws for the same genomes.
+
+    ``genomes`` are every genome a call may initialise (a padded slot
+    repeats one of them); each call's genomes are found by their content
+    hashes, so any pop, padding or one-genome-per-call routing is served.
+    ``input_shape`` is the HWC shape the model is built for (after
+    ``entry_channel_pad``)."""
     ref_model = _ref_model(cfg["nodes"], cfg["kernels_per_layer"], cfg["dense_units"],
-                           4, "float32", False)
+                           n_classes, cfg.get("compute_dtype", "float32"),
+                           cfg.get("stage_exit_conv", False))
+    by_hash = {tuple(int(w) for w in h): g
+               for g, h in zip(genomes, ref_cnn._genome_hashes(genomes))}
 
     def init(model, kfold, seed, genome_hashes, domain=0):
-        genomes = genomes_by_pop[len(genome_hashes)]
-        np.testing.assert_array_equal(genome_hashes, ref_cnn._genome_hashes(genomes))
-        ref = _ref_init(ref_model, genomes, cfg["nodes"], input_shape, kfold, seed, domain)
+        these = [by_hash[tuple(int(w) for w in h)] for h in genome_hashes]
+        ref = _ref_init(ref_model, these, cfg["nodes"], input_shape, kfold, seed, domain)
         return {k: torch.as_tensor(np.array(v)) for k, v in
                 params_from_reference(ref, cfg["nodes"], input_shape).items()}
 
     monkeypatch.setattr(port_cnn, "_init_population_params", init)
 
 
-def test_cv_accuracies_match_reference_with_injected_init(separable_data, monkeypatch):
+_S1_GENOMES = [{"S_1": (1, 0, 1)}, {"S_1": (0, 1, 0)}, {"S_1": (1, 1, 1)}, {"S_1": (0, 0, 0)}]
+_S34_GENOMES = [
+    {"S_1": (1, 0, 1), "S_2": (1, 0, 0, 1, 1, 0)},
+    {"S_1": (0, 0, 0), "S_2": (0, 1, 1, 0, 1, 1)},
+    {"S_1": (1, 1, 1), "S_2": (0, 0, 0, 0, 0, 0)},
+    {"S_1": (0, 1, 1), "S_2": (1, 1, 1, 1, 1, 1)},
+]
+#: ROADMAP §C's knobs: name → (config over FAST with dropout 0, genomes,
+#: data form).  Every case is float32 except ``bf16``.  The reference's CPU
+#: compile of a new program set takes most of a case's time (about 10 s), so
+#: knobs share a case wherever they can: the flat input reuses the two-stage
+#: LR case's programs; nesterov, microbatch 2 and fitness_reps 2 run as one
+#: S=(3,) case; S=(3,4) with the exit conv also takes the padded entry and
+#: three folds with the two-stage LR; S=(3,4) without it takes five folds of
+#: batch 24 (folds of 38 rows, eval batches of 48) and pop_padding off (3
+#: genomes run 3 wide, not 4).
+_TWO_STAGE = dict(epochs=(1, 1), learning_rate=(0.05, 0.02))
+_S34 = dict(nodes=(3, 4), kernels_per_layer=(4, 8))
+PARITY_CASES = {
+    "two-stage LR": (_TWO_STAGE, _S1_GENOMES, "nhwc"),
+    "flat input": (dict(_TWO_STAGE, input_shape=(8, 8, 1)), _S1_GENOMES, "flat"),
+    "nesterov, microbatch 2, fitness_reps 2": (
+        dict(nesterov=True, momentum=0.9, microbatch=2, fitness_reps=2, epochs=(1,)),
+        _S1_GENOMES, "nhwc"),
+    "S=(3,4), exit conv, entry_channel_pad 4, kfold 3, two-stage LR": (
+        dict(_S34, **_TWO_STAGE, stage_exit_conv=True, entry_channel_pad=4, kfold=3),
+        _S34_GENOMES, "nhwc"),
+    "S=(3,4), kfold 5, batch 24, pop_padding off": (
+        dict(_S34, epochs=(1,), kfold=5, batch_size=24, pop_padding=False),
+        _S34_GENOMES[:3], "nhwc"),
+    "bf16": (dict(compute_dtype="bfloat16", epochs=(1,)), _S1_GENOMES, "nhwc"),
+}
+
+
+@pytest.mark.parametrize("case", list(PARITY_CASES))
+def test_cv_accuracies_match_reference_with_injected_init(case, separable_data, monkeypatch):
+    overrides, genomes, form = PARITY_CASES[case]
     x, y = separable_data
-    genomes = [{"S_1": (1, 0, 1)}, {"S_1": (0, 1, 0)}, {"S_1": (1, 1, 1)}, {"S_1": (0, 0, 0)}]
-    cfg = dict(FAST, dropout_rate=0.0, epochs=(1, 1), learning_rate=(0.05, 0.02))
-    ref_cfg = {k: v for k, v in cfg.items() if k != "mesh"}
-    want = ref_cnn.GeneticCnnModel.cross_validate_population(x, y, genomes, **ref_cfg)
-    _inject_reference_init(monkeypatch, {4: genomes}, cfg, (8, 8, 1))
+    if form == "flat":
+        x = x.reshape(len(x), -1)
+    cfg = dict(FAST, dropout_rate=0.0, **overrides)
+    # The reference on one device, as the port runs (and it compiles in a
+    # fraction of the time its 8-device test mesh takes).
+    ref_cfg = dict(cfg, mesh=None)
+    want = np.asarray(ref_cnn.GeneticCnnModel.cross_validate_population(x, y, genomes, **ref_cfg))
+    model_shape = (8, 8, cfg.get("entry_channel_pad") or 1)
+    _inject_reference_init(monkeypatch, genomes, cfg, model_shape)
     got = GeneticCnnModel.cross_validate_population(x, y, genomes, **cfg)
-    # Same init, same folds and batch orders (the host RNG is copied), no
-    # dropout, float32: the only difference is float summation order, which
-    # can flip a validation sample whose top two logits are within ~1e-6.
-    # One flip moves a genome's CV mean by 1/(2*96); allow two.
-    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=2 / 192 + 1e-6)
+    assert got.shape == want.shape == (len(genomes),)
+    if cfg["compute_dtype"] == "bfloat16":
+        # Both packages round to bf16 at the same places; only float32
+        # summation order differs, and training carries it forward.  A
+        # validation sample whose top two logits lie within a bf16 ulp may
+        # flip: one flip moves a genome's CV mean by 1/(2*96).  Allow two.
+        np.testing.assert_allclose(got, want, rtol=0, atol=2 / 192 + 1e-6)
+    else:
+        # Same init, folds and batch orders (the host RNG is copied), no
+        # dropout, float32: the same accuracies.
+        assert float(np.abs(got - want).max()) == 0.0
 
 
 class TestBatchCompositionPurity:
@@ -488,7 +543,7 @@ class TestFoldParallel:
         cfg = dict(FAST, dropout_rate=0.0, fold_parallel=True)
         ref_cfg = {k: v for k, v in cfg.items() if k != "mesh"}
         want = ref_cnn.GeneticCnnModel.cross_validate_population(x, y, genomes, **ref_cfg)
-        _inject_reference_init(monkeypatch, {4: genomes}, cfg, (8, 8, 1))
+        _inject_reference_init(monkeypatch, genomes, cfg, (8, 8, 1))
         got = GeneticCnnModel.cross_validate_population(x, y, genomes, **cfg)
         # As for the segmented executor: same init and batches, float32 sums
         # in other orders may flip two validation samples of 96 per fold.
@@ -506,7 +561,7 @@ class TestTrainAndScore:
         args = (x[:128], y[:128], x[128:], y[128:], genomes)
         want = ref_cnn.GeneticCnnModel.train_and_score(*args, **ref_cfg)
         seen_domains = []
-        _inject_reference_init(monkeypatch, {4: genomes + genomes[-1:]}, cfg, (8, 8, 1))
+        _inject_reference_init(monkeypatch, genomes, cfg, (8, 8, 1))
         real_init = port_cnn._init_population_params
 
         def spy(model, kfold, seed, hashes, domain=0):
@@ -562,7 +617,7 @@ class TestWarmStartBank:
         cfg = dict(FAST, dropout_rate=0.0, warm_start=True)
         # The reference banks only without a device mesh (one device).
         ref_cnn.GeneticCnnModel.cross_validate_population(x, y, genomes, **{**cfg, "mesh": None})
-        _inject_reference_init(monkeypatch, {4: genomes + genomes[-1:]}, cfg, (8, 8, 1))
+        _inject_reference_init(monkeypatch, genomes, cfg, (8, 8, 1))
         GeneticCnnModel.cross_validate_population(x, y, genomes, **cfg)
         hashes = port_cnn._genome_hashes(genomes)
         keys = [(int(hi), int(lo)) for hi, lo in hashes]
@@ -660,22 +715,176 @@ class TestConfig:
         assert ref_cnn._normalize_config(x, y, padded) == port_cnn._normalize_config(x, y, padded)
 
     @pytest.mark.parametrize("knob", [dict(fold_parallel=True), dict(warm_start=True)])
-    def test_unported_executors_refuse(self, knob, separable_data):
-        """Both executors' knobs are ported; with either on, the routing that
-        is not (a budget that puts the genome off the wide-pop path) still
-        refuses instead of running something else, in both entry points."""
+    def test_unported_executors_refuse(self, knob, separable_data, monkeypatch):
+        """With either executor knob on, a budget that puts the genome off
+        the wide-pop path routes it (the micro class: one genome per call,
+        unpadded, microbatch 4) in both entry points instead of refusing."""
         x, y = separable_data
         big = {**FAST, **knob, "device_budget": 200_000}
-        with pytest.raises(NotImplementedError):
-            GeneticCnnModel.cross_validate_population(x, y, [{"S_1": (1, 0, 1)}], **big)
-        with pytest.raises(NotImplementedError):
-            GeneticCnnModel.train_and_score(x, y, x[:32], y[:32], [{"S_1": (1, 0, 1)}], **big)
+        calls = _spy_calls(monkeypatch)
+        genomes = [{"S_1": (1, 0, 1)}, {"S_1": (0, 1, 1)}]
+        cv = GeneticCnnModel.cross_validate_population(x, y, genomes, **big)
+        holdout = GeneticCnnModel.train_and_score(x, y, x[:32], y[:32], genomes, **big)
+        assert cv.shape == holdout.shape == (2,)
+        assert calls == [("cv", 1, False, 4)] * 2 + [("holdout", 1, False, 4)] * 2
 
     def test_big_genome_budget_refuses(self, separable_data):
+        """A budget below one genome's parameter state and one example
+        refuses in both entry points, before any work."""
         x, y = separable_data
-        with pytest.raises(NotImplementedError):
+        cost = cnn_genome_cost((3,), (8,), (8, 8, 1), 32, 4, "float32")
+        tiny = {**FAST, "device_budget": cost.param_bytes}
+        with pytest.raises(ValueError, match="unevaluable"):
+            GeneticCnnModel.cross_validate_population(x, y, [{"S_1": (1, 0, 1)}], **tiny)
+        with pytest.raises(ValueError, match="unevaluable"):
+            GeneticCnnModel.train_and_score(x, y, x[:32], y[:32], [{"S_1": (1, 0, 1)}], **tiny)
+
+
+def _spy_calls(monkeypatch):
+    """Record (entry point, genomes, pop_padding, microbatch) of every call
+    of the one-program evaluators."""
+    calls = []
+    for name, tag in (("_cross_validate_population_one", "cv"), ("_train_and_score_one", "holdout")):
+        real = getattr(GeneticCnnModel, name).__func__
+
+        def spy(cls, *args, _real=real, _tag=tag, **cfg):
+            calls.append((_tag, len(args[-1]), cfg.get("pop_padding", True), cfg.get("microbatch", 1)))
+            return _real(cls, *args, **cfg)
+
+        monkeypatch.setattr(GeneticCnnModel, name, classmethod(spy))
+    return calls
+
+
+@pytest.mark.parametrize("fault", ["one input channel of four", "float64 leaf"])
+def test_mismatched_initial_param_leaf_raises(fault, separable_data, monkeypatch):
+    """A leaf of the wrong shape or dtype is refused by name before any
+    step, not broadcast into the parameter."""
+    x, y = separable_data
+    cfg = dict(FAST, epochs=(1,), entry_channel_pad=4)
+    real = port_cnn._init_population_params
+
+    def faulty(model, kfold, seed, hashes, domain=0):
+        params = real(model, kfold, seed, hashes, domain)
+        if fault == "float64 leaf":
+            params["Dense_1.bias"] = params["Dense_1.bias"].double()
+        else:
+            params["stage0_entry.weight"] = params["stage0_entry.weight"][:, :, :, :1]
+        return params
+
+    monkeypatch.setattr(port_cnn, "_init_population_params", faulty)
+    ran = []
+    monkeypatch.setattr(port_cnn, "_train_step", lambda *a, **k: ran.append(1))
+    leaf = "Dense_1.bias" if fault == "float64 leaf" else "stage0_entry.weight"
+    with pytest.raises(ValueError, match=leaf):
+        GeneticCnnModel.cross_validate_population(x, y, [{"S_1": (1, 0, 1)}], **cfg)
+    assert not ran
+
+
+class TestSizeClassRouting:
+    """Port copies of the reference's ``TestShardedTraining`` budget tests,
+    on one device (a data axis of 1), plus the micro route held against the
+    reference's explicit-microbatch run and the cost-model gauges."""
+
+    GENOMES = [{"S_1": (1, 0, 1)}, {"S_1": (0, 1, 1)}]
+
+    @staticmethod
+    def _cost():
+        return cnn_genome_cost((3,), (8,), (8, 8, 1), 32, 4, "float32")
+
+    def test_generous_budget_keeps_small_path_bit_identical(self, separable_data):
+        x, y = separable_data
+        ref = GeneticCnnModel.cross_validate_population(x, y, self.GENOMES, **FAST)
+        on = GeneticCnnModel.cross_validate_population(
+            x, y, self.GENOMES, device_budget=10**12, **FAST)
+        assert np.array_equal(ref, on)
+
+    def test_big_genome_data_sharded_path(self, separable_data, monkeypatch):
+        """With a data axis of 1 the budget that the reference's 8 devices
+        route ``big`` (param_bytes + 8 examples) is ``micro`` here: the
+        batch of 32 needs a factor of 4.  Each genome runs alone, unpadded,
+        with gradient accumulation, the same bits as the explicit run."""
+        from gentun_tpu_torch.telemetry.registry import get_registry
+
+        x, y = separable_data
+        cost = self._cost()
+        budget = cost.param_bytes + cost.act_bytes_per_example * 8
+        assert port_cnn._genome_size_class(port_cnn._normalize_config(
+            x, y, dict(FAST, device_budget=budget))) == ("micro", 4)
+        reg = get_registry()
+        reg.reset()
+        calls = _spy_calls(monkeypatch)
+        micro = GeneticCnnModel.cross_validate_population(
+            x, y, self.GENOMES, device_budget=budget, **FAST)
+        assert calls == [("cv", 1, False, 4)] * 2
+        assert reg.counter("microbatch_steps_total").value > 0
+        reg.reset()
+        explicit = np.concatenate([
             GeneticCnnModel.cross_validate_population(
-                x, y, [{"S_1": (1, 0, 1)}], **{**FAST, "device_budget": 200_000})
+                x, y, [g], **{**FAST, "microbatch": 4, "pop_padding": False})
+            for g in self.GENOMES])
+        assert np.array_equal(micro, explicit)
+
+    def test_unevaluable_budget_is_loud(self, separable_data):
+        x, y = separable_data
+        with pytest.raises(ValueError, match="unevaluable"):
+            GeneticCnnModel.cross_validate_population(
+                x, y, [{"S_1": (1, 0, 1)}], device_budget=self._cost().param_bytes, **FAST)
+
+    def test_micro_route_matches_reference_explicit_microbatch(self, separable_data, monkeypatch):
+        """The port's micro route (factor 4) against the reference run with
+        ``microbatch=4``, ``pop_padding=False``, one genome per call, on one
+        device, from the same injected init; float32, dropout 0.  (The
+        reference's own budget classification sees 8 test devices and is not
+        compared.)"""
+        x, y = separable_data
+        cost = self._cost()
+        cfg = dict(FAST, dropout_rate=0.0, epochs=(1,))
+        ref_cfg = dict(cfg, mesh=None, microbatch=4, pop_padding=False)
+        want = np.concatenate([
+            np.asarray(ref_cnn.GeneticCnnModel.cross_validate_population(x, y, [g], **ref_cfg))
+            for g in self.GENOMES])
+        _inject_reference_init(monkeypatch, self.GENOMES, cfg, (8, 8, 1))
+        got = GeneticCnnModel.cross_validate_population(
+            x, y, self.GENOMES, device_budget=cost.param_bytes + cost.act_bytes_per_example * 8,
+            **cfg)
+        # Same init, folds, batches and microbatch slices, float32: the same
+        # accuracies.
+        assert float(np.abs(got - want).max()) == 0.0
+
+    def test_cost_calibration_gauges(self, separable_data):
+        """The cost model's prediction beside the params this call drew: the
+        supergraph's parameter count is the model's, so the two agree; the
+        allocator's bytes are absent on the CPU."""
+        from gentun_tpu_torch.telemetry.registry import get_registry
+
+        x, y = separable_data
+        reg = get_registry()
+        reg.reset()
+        cost = self._cost()
+        GeneticCnnModel.cross_validate_population(x, y, self.GENOMES, **FAST)
+        gauges = {(g["labels"]["size_class"], g["labels"]["source"]): g["value"]
+                  for g in reg.snapshot()["gauges"] if g["name"] == "genome_cost_calibration"}
+        assert gauges == {
+            ("small", "predicted_param_bytes"): cost.param_bytes,
+            ("small", "measured_param_bytes"): cost.param_bytes,
+            ("small", "predicted_act_bytes_batch"): cost.act_bytes_per_example * 32,
+        }
+        reg.reset()
+
+    def test_cache_dir_points_the_kernel_build(self, separable_data, tmp_path):
+        from gentun_tpu_torch.ops import _build
+
+        x, y = separable_data
+        before = _build.build_dir()
+        try:
+            GeneticCnnModel.cross_validate_population(
+                x, y, self.GENOMES[:1], **FAST, cache_dir=str(tmp_path / "kernels"))
+            assert _build.build_dir() == tmp_path / "kernels"
+            assert _build.library_path().parent == tmp_path / "kernels"
+            GeneticCnnModel.cross_validate_population(x, y, self.GENOMES[:1], **FAST)
+            assert _build.build_dir() == _build.BUILD_DIR
+        finally:
+            _build.use_build_dir(before)
 
 
 def test_auto_mesh_without_cuda_raises_and_runs_nothing(separable_data, monkeypatch):

@@ -154,8 +154,12 @@ def test_import_guard_subprocess():
 
 
 def test_static_import_guard():
-    """No file of the port, and not chip_smoke.py, names jax or the reference."""
-    files = sorted((REPO / "gentun_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """No file of the port, and not chip_smoke.py, bench_torch.py,
+    torch_entry.py or the port's examples, names jax or the reference."""
+    files = sorted((REPO / "gentun_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "bench_torch.py", REPO / "torch_entry.py",
+        *sorted((REPO / "examples").glob("torch_*.py"))]
+    assert len(files) > 30 and (REPO / "examples" / "torch_cifar100_deep.py") in files
     jax_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b", re.M)
     reference = re.compile(r"gentun_tpu(?!_torch)")
     for path in files:
