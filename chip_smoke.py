@@ -56,6 +56,28 @@ E. Executors at config #2's width: ``fold_parallel=True`` gives the pop-20
    ``GeneticAlgorithm.run(2)`` at config #1's shape (S=(3,5), filters
    (20,50), pop 10, 28×28×1) on synthetic MNIST-shaped data; every
    individual must get a finite fitness.
+A. The steady-state search at config #2's full width with ``warm_start``:
+   ``AsyncEvolution`` over ``Population(size=8, seed=3)`` with two
+   evaluations in flight (each one genome, the 2-slot pop bucket, on a
+   worker thread), the fidelity ladder (kfold 2, epochs 1 then 2, eta 3)
+   and a surrogate gate, telemetry spans, the lineage ledger and a run
+   export on; ``run(16)`` with a ``Checkpointer``, then a fresh engine
+   resumed from it to 22.  Each evaluation runs under its own library-conv
+   counter (dispatch modes are thread-local).  Gates: finite completions
+   and a mean rung-0 fitness above chance (0.1); both kernels launched and
+   no library convolution; every rung-0 fitness equal to its slot in one
+   batched call on the main thread (warm start off); one promotion's
+   fitness equal to a main-thread replay (bank cleared, its rung-0 call,
+   its rung-1 call); the resume starts at the checkpoint's count, reaches
+   22 and keeps each rung's best; the exported run's train and eval spans
+   come from two worker threads; ``build_info`` names torch, CUDA, the
+   driver and the SM; two rung-0 genomes evaluated at once on two threads
+   give the bits they give one after the other.  Prints the wall,
+   evaluations per hour, completions per rung, the gate's admissions, the
+   evaluations' walls per rung (and one genome's alone, with and without
+   the counter), the two-genome pair's walls serial and threaded, peak
+   memory and the lineage device-seconds against wall × 2; then both
+   kernels at every conv shape of config #2 at P=2.
 D. BASELINE config #5 at full width (S=(5,5,5), filters (64,128,256), dense
    512, 100 classes, pop 50, batch 256, bf16, the proxy schedule), as
    ``examples/torch_cifar100_deep.py`` runs it: ``RussianRouletteGA.run(1)``
@@ -89,12 +111,14 @@ B. Config #5 under a ``device_budget`` that classifies it ``micro`` with
 
 Then the card's ``nvidia-smi`` name and power limit, the
 ``{"kernels": [...]}`` line (each kernel's main-path launches, error and
-per-train-step times at config #2, and under ``deep`` the same at config
-#5 with the launches of phase D's GA) and, last, ``{"ok": true, "device": {...}}``.
+per-train-step times at config #2, under ``deep`` the same at config #5
+with the launches of phase D's GA, under ``async`` at P=2 with phase A's
+launches) and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -780,6 +804,221 @@ def phase_ga():
         f"{best.get_fitness():.4f}, fitnesses {np.round(fits, 4).tolist()}")
 
 
+#: Phase A: the steady-state search over config #2 at full width, each
+#: evaluation one genome (the 2-slot pop bucket) on a worker thread.
+ASYNC_LADDER = [{"kfold": 2, "epochs": (1,)}, {"kfold": 2, "epochs": (2,)}]
+ASYNC_POP, ASYNC_FIRST, ASYNC_TOTAL = 8, 16, 22
+
+
+def phase_async(torch, x, y, workdir: str):
+    """``AsyncEvolution`` with its fidelity ladder and surrogate gate over
+    config #2 at full width, two evaluations in flight on worker threads,
+    the warm-start bank on, spans and the lineage ledger on, a checkpoint,
+    then a fresh engine resumed from it (see the module docstring, phase
+    A).  Returns the result and the phase's kernel launches."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gentun_tpu_torch import (AsyncEvolution, FitnessSurrogate, GeneticCnnIndividual,
+                                  Population, SurrogateGate)
+    from gentun_tpu_torch.models import cnn
+    from gentun_tpu_torch.models.cnn import GeneticCnnModel
+    from gentun_tpu_torch.ops import pop_conv
+    from gentun_tpu_torch.telemetry import buildinfo, export, lineage, traceviz
+    from gentun_tpu_torch.utils import Checkpointer
+
+    evals, lock = [], threading.Lock()
+
+    class Counted(GeneticCnnIndividual):
+        """Runs each evaluation under its own library-conv counter: dispatch
+        modes are thread-local, so one entered on the main thread would
+        see nothing a worker thread runs."""
+
+        def evaluate(self):
+            counter, t0 = conv_counter(), time.monotonic()
+            with counter:
+                fitness = super().evaluate()
+            rung = [tuple(r["epochs"]) for r in ASYNC_LADDER].index(
+                tuple(self.additional_parameters["epochs"]))
+            with lock:
+                evals.append({"genes": self.get_genes(), "rung": rung, "fitness": fitness,
+                              "wall_s": time.monotonic() - t0,
+                              "thread": threading.current_thread().name,
+                              "convs": dict(counter.convs)})
+            return fitness
+
+    def join_workers():
+        """Wait for evaluations a finished run left running (its budget was
+        met with children in flight: their results are dropped, the pool's
+        threads finish them and exit)."""
+        for t in threading.enumerate():
+            if t.name.startswith("gentun-async-eval"):
+                t.join()
+
+    config = dict(PROXY, warm_start=True)
+    path = os.path.join(workdir, "async_checkpoint.json")
+    run_path = os.path.join(workdir, "async_telemetry.jsonl")
+    for stale in (path, run_path):
+        if os.path.exists(stale):
+            os.remove(stale)
+
+    def engine():
+        pop = Population(Counted, x_train=x, y_train=y, size=ASYNC_POP, seed=3,
+                         additional_parameters=config)
+        gate = SurrogateGate(FitnessSurrogate(min_train=6, refit_every=4), eta=2, min_window=4)
+        return AsyncEvolution(pop, tournament_size=3, max_in_flight=2, seed=5, eta=3,
+                              fidelity_ladder=ASYNC_LADDER, surrogate=gate, checkpoint_every=1)
+
+    cnn._WARM_BANK.clear()
+    lineage.reset_ledger()
+    lineage.enable()
+    export.start_run(run_path, label="phase A")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for k in pop_conv.LAUNCHES:
+            pop_conv.LAUNCHES[k] = 0
+        t0 = time.monotonic()
+        first = engine()
+        first.run(max_evaluations=ASYNC_FIRST, checkpointer=Checkpointer(path))
+        join_workers()
+        first_s = time.monotonic() - t0
+        with open(path) as fh:
+            saved = json.load(fh)
+        resumed = engine()
+        resumed.run(max_evaluations=ASYNC_TOTAL, checkpointer=Checkpointer(path))
+        join_workers()
+        wall = time.monotonic() - t0
+        launches = dict(pop_conv.LAUNCHES)
+    finally:
+        summary = export.end_run()
+        lineage.disable()
+    device_s = lineage.get_ledger().total()
+    peak = torch.cuda.max_memory_allocated()
+    trace = traceviz.convert(run_path, run_path.replace(".jsonl", ".trace.json"))
+    threads = {kind: {e["args"].get("thread") for e in trace["traceEvents"]
+                      if e.get("ph") == "X" and e.get("name") == kind}
+               for kind in ("train", "eval")}
+    labels = buildinfo.build_info_labels()
+    gate = resumed._surrogate
+    per_rung = [sum(1 for h in resumed.history if h.get("rung") == r and h["fitness"] is not None)
+                for r in range(len(ASYNC_LADDER))]
+    done = list(evals)
+    fits = [e["fitness"] for e in done]
+    rung0 = [e for e in done if e["rung"] == 0]
+    rung1 = [e for e in done if e["rung"] == 1]
+    convs = {}
+    for e in done:
+        for k, n in e["convs"].items():
+            convs[k] = convs.get(k, 0) + n
+    result = {
+        "first_wall_s": first_s, "wall_s": wall, "evaluations": len(done),
+        "evaluations_per_hour": len(done) / wall * 3600.0,
+        "completions": resumed.completed, "checkpoint_completions": saved["completed"],
+        "completions_per_rung": per_rung, "surrogate_admitted": gate.admitted,
+        "surrogate_rejected": gate.rejected,
+        "rung0_eval_walls_s": [e["wall_s"] for e in rung0],
+        "rung1_eval_walls_s": [e["wall_s"] for e in rung1],
+        "peak_mem_bytes": peak, "lineage_device_s": device_s, "wall_x2_s": 2 * wall,
+        "threads": sorted({e["thread"] for e in done}),
+        "span_kinds": summary["spans"] if summary else {},
+        "best_by_rung": {r: b.get_fitness() for r, b in resumed._best_by_rung.items()},
+        "build_info": labels, "library_convs": convs, "launches": launches,
+    }
+    log(f"[A] AsyncEvolution over config #2 (S={NODES}, filters {FILTERS}, "
+        f"{PROXY['compute_dtype']}, warm start), "
+        f"ring {ASYNC_POP}, 2 in flight, ladder {ASYNC_LADDER}: {ASYNC_FIRST} completions in "
+        f"{first_s:.3f} s, resumed from the checkpoint at {saved['completed']} to "
+        f"{resumed.completed}; wall {wall:.3f} s, {len(done)} evaluations "
+        f"({result['evaluations_per_hour']:.1f} evaluations/hour)")
+    log(f"[A] completions per rung {per_rung}; surrogate admitted {gate.admitted}, rejected "
+        f"{gate.rejected}; evaluations per thread "
+        f"{ {t: sum(1 for e in done if e['thread'] == t) for t in result['threads']} }")
+    for r, walls in enumerate((result["rung0_eval_walls_s"], result["rung1_eval_walls_s"])):
+        if walls:
+            log(f"[A] rung-{r} evaluations in the search (two threads, library-conv counter on): "
+                f"{len(walls)}, wall median {np.median(walls):.3f} s, first {walls[0]:.3f} s, "
+                f"min {min(walls):.3f} s, max {max(walls):.3f} s")
+    log(f"[A] peak memory {peak / 2**30:.2f} GiB")
+    log(f"[A] lineage device-seconds {device_s:.3f} s against wall x 2 = {2 * wall:.3f} s "
+        f"(1.0 = two threads always both evaluating)")
+    log(f"[A] kernel launches in the phase: {launches}; library convolution ops: "
+        f"{convs or 'none'}; train/eval span threads {threads}; build_info {labels}")
+    check(bool(done) and bool(np.isfinite(fits).all()), "finite async completions")
+    mean0 = float(np.mean([e["fitness"] for e in rung0])) if rung0 else 0.0
+    log(f"[A] mean rung-0 fitness {mean0:.4f} (chance 0.1) over {len(rung0)} evaluations")
+    check(mean0 > 0.1, f"async rung-0 mean fitness above chance: {mean0}")
+    for k, n in launches.items():
+        check(n > 0, f"{k} launched in phase A")
+    check(not convs, f"no library convolution on the worker threads: {convs}")
+    check(resumed.completed == ASYNC_TOTAL and len(resumed.history) == ASYNC_TOTAL
+          and resumed.history[:saved["completed"]] == saved["history"],
+          "the resumed engine starts at the checkpoint's count and reaches the budget")
+    for r, b in first._best_by_rung.items():
+        check(resumed._best_by_rung[r].get_fitness() >= b.get_fitness(),
+              f"the resumed engine's rung-{r} best is no worse than the first run's")
+    check(all(len({t for t in names if t and t.startswith("gentun-async-eval")}) >= 2
+              for names in threads.values()),
+          f"train and eval spans from two distinct worker threads: {threads}")
+    check(all(labels.get(k, "unknown") != "unknown" for k in ("torch", "cuda", "driver", "sm"))
+          and not any(k.startswith("jax") for k in labels), f"build_info labels: {labels}")
+    # (c) Purity across threads: every genome measured at rung 0 gets the
+    # bits of its slot in one batched call on the main thread (no warm start).
+    genomes = [e["genes"] for e in rung0]
+    t0 = time.monotonic()
+    batched = GeneticCnnModel.cross_validate_population(
+        x, y, genomes, **dict(PROXY, **ASYNC_LADDER[0]))
+    purity = float(np.abs(batched - np.array([e["fitness"] for e in rung0], np.float32)).max())
+    log(f"[A] purity: {len(genomes)} rung-0 fitnesses of the two-thread search vs one batched "
+        f"call of them on the main thread ({time.monotonic() - t0:.3f} s): max|Δfitness| = {purity}")
+    check(purity == 0.0, f"async rung-0 fitnesses equal the batched call: {purity}")
+    # (d) Warm start under concurrency: a promotion's fitness is the bits of
+    # a main-thread replay (bank cleared, its rung-0 call, its rung-1 call).
+    check(bool(rung1), "a genome was promoted to rung 1")
+    promoted = rung1[0]
+
+    def alone(overlay, counted):
+        counter, t0 = conv_counter(), time.monotonic()
+        with counter if counted else contextlib.nullcontext():
+            fitness = GeneticCnnModel(x, y, promoted["genes"],
+                                      **dict(config, **overlay)).cross_validate()
+        return fitness, time.monotonic() - t0
+
+    cnn._WARM_BANK.clear()
+    _, counted_s = alone(ASYNC_LADDER[0], True)  # the hook's cost, one thread
+    cnn._WARM_BANK.clear()
+    (_, rung0_s), (replay, rung1_s) = (alone(overlay, False) for overlay in ASYNC_LADDER)
+    cnn._WARM_BANK.clear()
+    log(f"[A] the promoted genome alone on the main thread: rung 0 {counted_s:.3f} s with the "
+        f"library-conv counter, {rung0_s:.3f} s without; rung 1 {rung1_s:.3f} s without")
+    log(f"[A] warm start: promoted genome's rung-1 fitness {promoted['fitness']!r} in the search, "
+        f"{replay!r} in a main-thread replay")
+    check(replay == promoted["fitness"], "a promotion's warm start replays bit for bit")
+    # Do two evaluation threads overlap at all?  Two rung-0 genomes, no
+    # counter, no warm start: one after the other, then both at once.
+    pair = [promoted["genes"], next(e["genes"] for e in rung0 if e["genes"] != promoted["genes"])]
+
+    def timed(genes):
+        t0 = time.monotonic()
+        fitness = GeneticCnnModel(x, y, genes, **dict(PROXY, **ASYNC_LADDER[0])).cross_validate()
+        return fitness, time.monotonic() - t0
+
+    serial = [timed(g) for g in pair]
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(2) as pool:
+        together = list(pool.map(timed, pair))
+    together_s = time.monotonic() - t0
+    serial_s = sum(w for _, w in serial)
+    log(f"[A] two rung-0 evaluations, no counter: one after the other {serial_s:.3f} s "
+        f"({serial[0][1]:.3f} + {serial[1][1]:.3f}), both at once on two threads "
+        f"{together_s:.3f} s ({together_s / serial_s:.3f} of the serial wall)")
+    check([f for f, _ in together] == [f for f, _ in serial],
+          "two threads at once give each genome its bits alone")
+    result.update(purity_max_abs_diff=purity, alone_rung0_counted_s=counted_s,
+                  alone_rung0_s=rung0_s, alone_rung1_s=rung1_s, pair_serial_s=serial_s,
+                  pair_threads_s=together_s)
+    return result, launches
+
+
 def conv_counter():
     """A dispatch mode that counts every aten convolution op run inside it
     (the port's kernels are no aten op; a library conv would be one)."""
@@ -1050,32 +1289,44 @@ def replaces(source: str):
     return out
 
 
-def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots):
+def _bound_by(tot) -> str:
+    return "bytes" if tot["bound_bytes_ms"] >= tot["bound_ops_ms"] else "operations"
+
+
+def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
+                 async_per_step, async_launches):
     """The ``{"kernels": [...]}`` record: each kernel's launches on the main
     path (phase 3) and, from phase K, its error against the plain version and
     its times summed over the calls of one config #2 train step (bf16); under
     ``deep`` the same for config #5 (the launches of phase D's GA, phase K5's
-    times)."""
+    times), under ``async`` for the steady-state search (phase A's launches,
+    its P=2 times)."""
     where = replaces(KERNEL_SOURCE)
     out = []
     for name, tot in per_step.items():
-        deep = deep_per_step[name]
+        deep, asy = deep_per_step[name], async_per_step[name]
         out.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": where[name], "launches": launches[name],
             "max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
-            "bound_by": "bytes" if tot["bound_bytes_ms"] >= tot["bound_ops_ms"] else "operations",
+            "bound_by": _bound_by(tot),
             "library_ms": tot["library_ms"],
             "per": f"config #2 train step, bf16, pop {POP}, batch 256: {tot['calls']} calls",
             "deep": {
                 "launches": deep_launches[name], "max_abs_err": deep["max_abs_err"],
                 "ms": deep["ms"], "plain_ms": deep["plain_ms"], "bound_ms": deep["bound_ms"],
-                "bound_by": ("bytes" if deep["bound_bytes_ms"] >= deep["bound_ops_ms"]
-                             else "operations"),
+                "bound_by": _bound_by(deep),
                 "library_ms": deep["library_ms"],
                 "per": f"config #5 train step, bf16, pop {deep_slots}, batch 256: "
                        f"{deep['calls']} calls",
+            },
+            "async": {
+                "launches": async_launches[name], "max_abs_err": asy["max_abs_err"],
+                "ms": asy["ms"], "plain_ms": asy["plain_ms"], "bound_ms": asy["bound_ms"],
+                "bound_by": _bound_by(asy), "library_ms": asy["library_ms"],
+                "per": f"config #2 train step, bf16, pop 2 (one genome an evaluation), "
+                       f"batch 256: {asy['calls']} calls",
             },
         })
     return {"kernels": out}
@@ -1112,6 +1363,10 @@ def main() -> int:
     purity, batches = phase_purity(x, y, genomes, bf16_calls)
     executors = phase_executors(x, y, genomes, batches)
     phase_ga()
+    asynchronous, async_launches = phase_async(torch, x, y, os.path.join(REPO, "build", "chip_smoke"))
+    async_per_step = {"pop_conv3x3_fwd": {}, "pop_conv3x3_wgrad": {}}
+    step_kernels(torch, "A", NODES, FILTERS, 2, "bfloat16", async_per_step)
+    log_per_step("A", "config #2 (P=2)", async_per_step)
     del x, y, genomes, bf16_calls, batches
     deep, deep_launches, deep_slots, (x5, y5, pair) = phase_deep(
         torch, os.path.join(REPO, "build", "chip_smoke"))
@@ -1121,11 +1376,12 @@ def main() -> int:
     budget = phase_budget(torch, x5, y5, pair)
     summary = {"main_path": main_result, "launches": launches, "purity_max_abs_diff": purity,
                "differing_grad_leaves": leaves, "executors": executors, "deep": deep,
-               "deep_launches": deep_launches, "budget": budget,
+               "deep_launches": deep_launches, "budget": budget, "async": asynchronous,
                "card": smi, "total_s": time.monotonic() - t_start}
     log(f"[6] summary: {json.dumps(summary, default=str)}")
     print(smi)
-    print(json.dumps(kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots)))
+    print(json.dumps(kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
+                                  async_per_step, async_launches)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -6,7 +6,10 @@ is).  It carries the same module tree and names:
 - the deterministic, seeded GA engine (``genes``, ``individuals``,
   ``populations``, ``algorithms``), copied from the reference;
 - Genetic-CNN fitness as a masked supergraph trained for a whole population
-  at once on the CUDA device (``ops``, ``models``).
+  at once on the CUDA device (``ops``, ``models``);
+- the steady-state engine with its fidelity ladder and surrogate gate
+  (``algorithms_async``, ``surrogate``), the boosting control-path species
+  (host-side, sklearn or xgboost imported lazily) and the telemetry plane.
 
 The port imports ``torch`` and never ``jax``, and nothing of the JAX package:
 where it needs one of the reference's jax-free modules it keeps its own copy.
@@ -25,9 +28,11 @@ from .genes import (
     genetic_cnn_genome,
     xgboost_genome,
 )
-from .individuals import GeneticCnnIndividual, Individual
+from .individuals import BoostingIndividual, GeneticCnnIndividual, Individual, XgboostIndividual
 from .populations import GridPopulation, Population
 from .algorithms import GeneticAlgorithm, RussianRouletteGA
+from .algorithms_async import AsyncEvolution
+from .surrogate import FitnessSurrogate, SurrogateGate
 from . import telemetry  # noqa: F401  (zero-dependency)
 
 __all__ = [
@@ -42,10 +47,15 @@ __all__ = [
     "xgboost_genome",
     "Individual",
     "GeneticCnnIndividual",
+    "BoostingIndividual",
+    "XgboostIndividual",
     "Population",
     "GridPopulation",
     "GeneticAlgorithm",
     "RussianRouletteGA",
+    "AsyncEvolution",
+    "FitnessSurrogate",
+    "SurrogateGate",
 ]
 
 __version__ = "0.1.0"
@@ -56,5 +66,12 @@ try:  # pragma: no cover - exercised implicitly
     from .models.cnn import GeneticCnnModel  # noqa: F401
 
     __all__.append("GeneticCnnModel")
+except ImportError:  # pragma: no cover
+    pass
+
+try:  # pragma: no cover
+    from .models.boosting import BoostingModel  # noqa: F401
+
+    __all__.append("BoostingModel")
 except ImportError:  # pragma: no cover
     pass

@@ -236,6 +236,12 @@ class GeneticAlgorithm:
                     best = self.population.get_fittest()
         finally:
             _health.unregister_engine_status(self._status_session, self._ops_status)
+            # End-of-run fleet push: the final generation's counters reach
+            # the aggregator even if the caller keeps the population open.
+            # No-op (an empty-dict read) when nothing is wired.
+            from .telemetry.aggregator import flush_active_pushers
+
+            flush_active_pushers()
         logger.info("search done: best fitness %.6g, genes %s", best.get_fitness(), best.get_genes())
         return best
 

@@ -1,8 +1,8 @@
 """Individuals: a genome value + lazy, cached fitness evaluation.
 
-Reference parity: gentun's ``Individual`` ABC and its ``GeneticCnnIndividual``
-species (``gentun/individuals.py`` [PUB]; SURVEY.md §2.0 rows 5-7).  The
-boosting species of the JAX package are not ported yet.  The reference's key behaviors preserved here:
+Reference parity: gentun's ``Individual`` ABC and its two species,
+``XgboostIndividual`` and ``GeneticCnnIndividual`` (``gentun/individuals.py``
+[PUB]; SURVEY.md §2.0 rows 5-7).  The reference's key behaviors preserved here:
 
 - ``get_fitness()`` is lazy and cached — an individual trains its model at
   most once; reproduction produces children with fitness unset, so unchanged
@@ -24,9 +24,9 @@ from typing import Any, Dict, Mapping, Optional, Type
 
 import numpy as np
 
-from .genes import GenomeSpec, genetic_cnn_genome
+from .genes import GenomeSpec, boosting_genome, genetic_cnn_genome, xgboost_genome
 
-__all__ = ["Individual", "GeneticCnnIndividual"]
+__all__ = ["Individual", "GeneticCnnIndividual", "BoostingIndividual", "XgboostIndividual"]
 
 
 def _freeze(obj: Any) -> Any:
@@ -260,3 +260,63 @@ class GeneticCnnIndividual(Individual):
             from .models.cnn import GeneticCnnModel as model_cls  # lazy: keeps torch import off the GA path
         model = model_cls(self.x_train, self.y_train, self.genes, **self.additional_parameters)
         return model.cross_validate()
+
+
+class BoostingIndividual(Individual):
+    """Gradient-boosting hyperparameter-search individual (control path).
+
+    The rebuild's counterpart of gentun's ``XgboostIndividual`` (SURVEY.md
+    §2.0 row 6), on sklearn ``HistGradientBoosting`` where xgboost is
+    missing.  Host-side: its fitness never touches the accelerator.
+
+    ``additional_parameters``: ``kfold`` (default 5), ``metric``
+    (default "accuracy"), ``task`` ("classification" | "regression").
+
+    Backend selection: real xgboost (``models/xgboost.py`` — the
+    reference's ``xgb.cv``) whenever ``import xgboost`` succeeds, else the
+    sklearn translation (``models/boosting.py``).  Override with
+    ``model_cls``.
+    """
+
+    model_cls: Optional[Type] = None
+
+    @classmethod
+    def fitness_backend(cls) -> Optional[str]:
+        if cls.model_cls is not None:
+            return cls.model_cls.__name__
+        from .models import default_boosting_model
+
+        return default_boosting_model().__name__
+
+    def build_spec(self, **params) -> GenomeSpec:
+        return boosting_genome()
+
+    def evaluate(self) -> float:
+        if self.x_train is None or self.y_train is None:
+            raise RuntimeError(
+                "this individual has no training data; in distributed mode "
+                "fitness must be assigned via set_fitness() from a worker reply"
+            )
+        model_cls = self.model_cls
+        if model_cls is None:
+            from .models import default_boosting_model
+
+            model_cls = default_boosting_model()
+        model = model_cls(self.x_train, self.y_train, self.genes, **self.additional_parameters)
+        return model.cross_validate()
+
+
+class XgboostIndividual(BoostingIndividual):
+    """The reference species, genome included (``gentun/individuals.py``
+    [PUB]; SURVEY.md §2.0 row 6): searches the 11 XGBoost hyperparameters
+    (eta, max_depth, min_child_weight, gamma, subsample,
+    colsample_bytree/bylevel, lambda, alpha, max_delta_step,
+    scale_pos_weight) with the reference's (default, min, max) bounds.
+
+    Backend follows :class:`BoostingIndividual`'s selection: real
+    ``xgb.cv`` when xgboost is importable (all 11 genes live — full
+    reference parity), sklearn translation otherwise (7 live, warned).
+    """
+
+    def build_spec(self, **params) -> GenomeSpec:
+        return xgboost_genome()

@@ -51,6 +51,7 @@ import contextlib
 import gc
 import hashlib
 import logging
+import threading
 import time
 import weakref
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -417,6 +418,15 @@ def _segment_bounds(total_steps: int, segment_steps) -> List[Tuple[int, int]]:
     return [(s, min(s + seg, total_steps)) for s in range(0, total_steps, seg)]
 
 
+#: ``exact_numerics`` state.  The TF32 flag is process-global and
+#: evaluations run on several threads at once (``AsyncEvolution``'s thread
+#: pool): the flag stays off while ANY thread is inside, and the value the
+#: first thread found comes back when the last one leaves.
+_NUMERICS_LOCK = threading.Lock()
+_numerics_depth = 0
+_numerics_saved = False
+
+
 @contextlib.contextmanager
 def exact_numerics():
     """IEEE float32 matmuls inside the block.
@@ -428,22 +438,33 @@ def exact_numerics():
     one product per genome, so a fitness is a function of (genome, config,
     seed) alone: the same bits in any slot, batch or pop bucket.  The
     executor runs every fold inside this block; the caller's flag is
-    restored on exit.
+    restored when the last block open in the process (on any thread) exits.
     """
+    global _numerics_depth, _numerics_saved
     matmul = torch.backends.cuda.matmul
-    saved = matmul.allow_tf32
-    matmul.allow_tf32 = False
+    with _NUMERICS_LOCK:
+        if _numerics_depth == 0:
+            _numerics_saved = matmul.allow_tf32
+        _numerics_depth += 1
+        matmul.allow_tf32 = False
     try:
         yield
     finally:
-        matmul.allow_tf32 = saved
+        with _NUMERICS_LOCK:
+            _numerics_depth -= 1
+            if _numerics_depth == 0:
+                matmul.allow_tf32 = _numerics_saved
 
 
 def _device_span(kind: str, t0: float, device: torch.device, attrs: Dict[str, Any]) -> None:
     """End a telemetry span around device work: wait for the device (only
-    reached when telemetry is enabled), then record the span."""
+    reached when telemetry is enabled), then record the span, with the name
+    of the thread that ran the work (evaluations may run on several).  The
+    wait is for the whole device: a span of one thread also covers work
+    that another thread queued on the shared stream before it."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    attrs = {**attrs, "thread": threading.current_thread().name}
     _tele.record_span(kind, t0, time.monotonic() - t0, attrs=attrs)
 
 
@@ -640,18 +661,24 @@ def _init_population_params(
 #: promotion that lands elsewhere cold-starts, which is always correct.
 _WARM_BANK: Dict[Tuple[int, int], Dict[str, np.ndarray]] = {}
 _WARM_BANK_CAP = 64
+#: Guards every read-modify-write of the bank: promotions deposit and
+#: overlay from several evaluation threads at once.  Never held across a
+#: device call: the host copy is taken before it, the tensor writes after.
+_WARM_BANK_LOCK = threading.Lock()
 
 
 def _warm_bank_deposit(model: MaskedGeneticCnn, hashes: np.ndarray) -> None:
     """Bank slot ``i``'s trained params under ``hashes[i]``, for each row of
     ``hashes`` (the real genomes, slots ``0..len-1``)."""
     host = {name: p.detach().cpu().numpy() for name, p in model.named_parameters()}
-    for i, (hi, lo) in enumerate(hashes):
-        key = (int(hi), int(lo))
-        _WARM_BANK.pop(key, None)
-        _WARM_BANK[key] = {name: leaf[i].copy() for name, leaf in host.items()}
-    while len(_WARM_BANK) > _WARM_BANK_CAP:
-        del _WARM_BANK[next(iter(_WARM_BANK))]
+    entries = [((int(hi), int(lo)), {name: leaf[i].copy() for name, leaf in host.items()})
+               for i, (hi, lo) in enumerate(hashes)]
+    with _WARM_BANK_LOCK:
+        for key, entry in entries:
+            _WARM_BANK.pop(key, None)
+            _WARM_BANK[key] = entry
+        while len(_WARM_BANK) > _WARM_BANK_CAP:
+            del _WARM_BANK[next(iter(_WARM_BANK))]
 
 
 def _warm_start_overlay(
@@ -665,14 +692,18 @@ def _warm_start_overlay(
     of another layer set is skipped; a leaf whose shape or dtype disagrees
     keeps its fresh init.  Returns (params, slots_warmed).
     """
+    keys = [(int(hi), int(lo)) for hi, lo in hashes]
+    with _WARM_BANK_LOCK:  # a deposit replaces an entry whole, never edits one
+        found = {}
+        for key in keys:
+            banked = _WARM_BANK.get(key)
+            if banked is not None:
+                _WARM_BANK[key] = _WARM_BANK.pop(key)  # LRU touch
+                found[key] = banked
     warmed = 0
-    for i, (hi, lo) in enumerate(hashes):
-        key = (int(hi), int(lo))
-        banked = _WARM_BANK.get(key)
-        if banked is None:
-            continue
-        _WARM_BANK[key] = _WARM_BANK.pop(key)  # LRU touch
-        if set(banked) != set(params):
+    for i, key in enumerate(keys):
+        banked = found.get(key)
+        if banked is None or set(banked) != set(params):
             continue
         hit = False
         for name, leaf in params.items():
@@ -696,6 +727,12 @@ def _warm_start_overlay(
 #: never alias, and by a strided content fingerprint, so in-place mutation
 #: is detected instead of silently training on stale device data.
 _DATASET_CACHE: Dict[Tuple, Tuple[Any, Any, Any, Any]] = {}
+#: Guards the cache's read-modify-writes (evaluation threads look it up at
+#: once).  The upload runs outside it, so two threads that miss at first
+#: use may both upload: each trains on its own copy of the same bits, the
+#: later insert replaces the earlier, and the extra copy is freed when its
+#: evaluation ends.
+_DATASET_LOCK = threading.Lock()
 
 
 def _content_fingerprint(a) -> Tuple[Any, ...]:
@@ -716,8 +753,6 @@ def _device_dataset(key_x, key_y, xp: np.ndarray, yp: np.ndarray, perm: np.ndarr
     fingerprint, so a GA pays the upload once per search, and a caller that
     mutates its arrays in place near-certainly misses the cache.  LRU of 4.
     """
-    for k in [k for k, (xr, yr, *_dv) in _DATASET_CACHE.items() if xr() is None or yr() is None]:
-        del _DATASET_CACHE[k]
     key = (
         id(key_x),
         id(key_y),
@@ -728,19 +763,24 @@ def _device_dataset(key_x, key_y, xp: np.ndarray, yp: np.ndarray, perm: np.ndarr
         cfg["input_shape"],
         str(device),
     )
-    hit = _DATASET_CACHE.get(key)
-    if hit is not None:
-        xref, yref, xd, yd = hit
-        if xref() is key_x and yref() is key_y:
-            _DATASET_CACHE[key] = _DATASET_CACHE.pop(key)  # LRU: refresh recency
-            return xd, yd
-    # Same arrays, different fingerprint ⇒ mutated in place: drop the stale
-    # entries now instead of pinning device copies until LRU catches up.
-    for k in [
-        k for k in _DATASET_CACHE
-        if k[0] == key[0] and k[1] == key[1] and (k[2], k[3]) != (key[2], key[3])
-    ]:
-        del _DATASET_CACHE[k]
+    with _DATASET_LOCK:
+        for k in [k for k, (xr, yr, *_dv) in _DATASET_CACHE.items()
+                  if xr() is None or yr() is None]:
+            del _DATASET_CACHE[k]
+        hit = _DATASET_CACHE.get(key)
+        if hit is not None:
+            xref, yref, xd, yd = hit
+            if xref() is key_x and yref() is key_y:
+                _DATASET_CACHE[key] = _DATASET_CACHE.pop(key)  # LRU: refresh recency
+                return xd, yd
+        # Same arrays, different fingerprint ⇒ mutated in place: drop the
+        # stale entries now instead of pinning device copies until LRU
+        # catches up.
+        for k in [
+            k for k in _DATASET_CACHE
+            if k[0] == key[0] and k[1] == key[1] and (k[2], k[3]) != (key[2], key[3])
+        ]:
+            del _DATASET_CACHE[k]
     xd = torch.from_numpy(np.ascontiguousarray(xp[perm])).to(device)
     xd = xd.permute(0, 3, 1, 2).contiguous()  # NHWC → NCHW, once per upload
     yd = torch.from_numpy(yp[perm].astype(np.int64)).to(device)
@@ -748,9 +788,11 @@ def _device_dataset(key_x, key_y, xp: np.ndarray, yp: np.ndarray, perm: np.ndarr
         xref, yref = weakref.ref(key_x), weakref.ref(key_y)
     except TypeError:
         return xd, yd  # un-weakref-able input (e.g. a list): don't cache
-    while len(_DATASET_CACHE) >= 4:  # datasets are big; keep device memory bounded
-        _DATASET_CACHE.pop(next(iter(_DATASET_CACHE)))
-    _DATASET_CACHE[key] = (xref, yref, xd, yd)
+    with _DATASET_LOCK:
+        _DATASET_CACHE.pop(key, None)  # another thread's upload of the same data
+        while len(_DATASET_CACHE) >= 4:  # datasets are big; keep device memory bounded
+            _DATASET_CACHE.pop(next(iter(_DATASET_CACHE)))
+        _DATASET_CACHE[key] = (xref, yref, xd, yd)
     return xd, yd
 
 
@@ -761,6 +803,14 @@ def _device_dataset(key_x, key_y, xp: np.ndarray, yp: np.ndarray, perm: np.ndarr
 #: Per-config cap on how many genomes one program may carry, learned from
 #: device OOMs (see _chunked_by_cap).
 _POP_PROGRAM_CAP: Dict[Any, int] = {}
+#: Guards the cap's read-modify-write: two evaluation threads may run out of
+#: memory at once, and the smaller cap either learns is the one kept.
+_POP_CAP_LOCK = threading.Lock()
+
+
+def _learn_pop_cap(cap_key, cap: int) -> None:
+    with _POP_CAP_LOCK:
+        _POP_PROGRAM_CAP[cap_key] = min(cap, _POP_PROGRAM_CAP.get(cap_key, cap))
 
 
 def _oom_cap_key(cfg: Dict[str, Any]):
@@ -805,7 +855,7 @@ def _chunked_by_cap(run, genomes, cap_key, run_exact=None):
         if len(genomes) <= 1:
             if run_exact is None:
                 raise
-            _POP_PROGRAM_CAP[cap_key] = 1
+            _learn_pop_cap(cap_key, 1)
             logger.warning(
                 "singleton population batch exhausted device memory in its "
                 "padded (2-wide) program; retrying exact-size (1-wide, unpadded)",
@@ -816,7 +866,7 @@ def _chunked_by_cap(run, genomes, cap_key, run_exact=None):
             b = 1
             while b * 2 <= half:
                 b *= 2
-            _POP_PROGRAM_CAP[cap_key] = b
+            _learn_pop_cap(cap_key, b)
             logger.warning(
                 "population batch of %d genomes exhausted device memory; "
                 "chunking to <=%d genomes per program (remembered for this "
@@ -825,7 +875,10 @@ def _chunked_by_cap(run, genomes, cap_key, run_exact=None):
     # Retry OUTSIDE the except block, deliberately: the exception's
     # traceback pins the frames (and so the device tensors) of the failed
     # attempt.  Leaving the handler drops it; collect and hand the cached
-    # blocks back before the smaller chunks run.
+    # blocks back before the smaller chunks run.  With other threads
+    # evaluating, their live tensors stay where they are (``empty_cache``
+    # frees only unused cached blocks), so the cap learned beside them is
+    # the conservative one.
     gc.collect()
     torch.cuda.empty_cache()
     if fallback is not None:
@@ -1002,7 +1055,10 @@ class GeneticCnnModel(GentunModel):
       after another as without it, and a fitness is the same bits either
       way (``PERF.md`` records why the port has no fused-folds executor).
     - ``warm_start``: the reference's process-local warm-start bank; off
-      with ``fold_parallel``, as in the reference.
+      with ``fold_parallel``, as in the reference.  Accepted here by the
+      one-genome constructor too (the reference's takes it only in
+      ``cross_validate_population``), so a species evaluated one
+      individual at a time, as ``AsyncEvolution`` evaluates, can use it.
     - ``device_budget``: bytes one device may spend on one genome.  The port
       runs on one device, where the cost model's ``big`` class (the batch
       sharded over a data axis) cannot occur: a config over the budget is
@@ -1042,6 +1098,7 @@ class GeneticCnnModel(GentunModel):
         pop_padding: bool = True,
         fitness_reps: int = 1,
         entry_channel_pad: Optional[int] = None,
+        warm_start: bool = False,
         device_budget: Optional[int] = None,
         microbatch: int = 1,
     ):
@@ -1069,6 +1126,7 @@ class GeneticCnnModel(GentunModel):
             pop_padding=bool(pop_padding),
             fitness_reps=int(fitness_reps),
             entry_channel_pad=entry_channel_pad,
+            warm_start=bool(warm_start),
             device_budget=device_budget,
             microbatch=int(microbatch),
         )

@@ -27,6 +27,7 @@ other slots are.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -49,6 +50,15 @@ __all__ = [
 #: Kernel launches per wrapper, counted where the kernel is launched and
 #: nowhere else (a CPU call launches nothing).
 LAUNCHES: Dict[str, int] = {"pop_conv3x3_fwd": 0, "pop_conv3x3_wgrad": 0}
+#: Guards the read-modify-write of a count: evaluations on several threads
+#: launch at once, and a bare ``+= 1`` can lose a count between them.
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch(name: str) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+
 
 #: Pixels per split of the float32 and float64 weight gradient, whose FMA
 #: kernel walks a split in chunks of 16 pixels.
@@ -204,7 +214,7 @@ def pop_conv3x3_fwd(
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(rc, "pop_conv3x3_fwd")
-    LAUNCHES["pop_conv3x3_fwd"] += 1
+    _count_launch("pop_conv3x3_fwd")
     return y
 
 
@@ -237,7 +247,7 @@ def pop_conv3x3_wgrad(
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(rc, "pop_conv3x3_wgrad")
-    LAUNCHES["pop_conv3x3_wgrad"] += 1
+    _count_launch("pop_conv3x3_wgrad")
     return dw, db
 
 
