@@ -78,6 +78,30 @@ A. The steady-state search at config #2's full width with ``warm_start``:
    the counter), the two-genome pair's walls serial and threaded, peak
    memory and the lineage device-seconds against wall × 2; then both
    kernels at every conv shape of config #2 at P=2.
+W. BASELINE config #4 with the port's worker processes on the card, as
+   ``scripts/distributed_tpu_run.py`` sets it up, after the cache of the
+   phases before is emptied.  W1: a master
+   (``DistributedPopulation(GeneticCnnIndividual, size=20, seed=0)`` on
+   config #2's proxy schedule, ``evaluate_retries=3``) and one
+   ``python -m gentun_tpu_torch.distributed.worker --species genetic-cnn
+   --dataset cifar10 --n 10000 --capacity 20`` process run
+   ``RussianRouletteGA(...).run(3)``; then the same GA in this process on
+   ``load_cifar10(n=10_000)``.  Gate: the same history and every fitness,
+   bit for bit; the worker's kernel launches (logged at its exit) > 0.
+   Prints each generation's wall both ways, the evaluated counts and
+   individuals per hour against phase 3's.  A ``CompileService`` runs for
+   the phase; W1's worker publishes the kernel library to it.  W2: two
+   worker processes of capacity 10 (no prefetch), the second with an
+   empty ``GENTUN_TORCH_CACHE_DIR``, run two generations.  Gates: the
+   second fetched the library (its bytes equal, no ``nvcc`` in its log),
+   both served jobs, the history equals W1's and every fitness equals
+   W1's; the library fits the service's blob limit.  Prints the walls,
+   the card's used memory with both alive and each worker's peak memory.
+   W3: a ``GentunClient`` thread in this process, under the library-conv
+   counter, serves a ``CanaryDaemon`` probe whose golden was sealed from
+   W1's single-process fitness.  Gates: the probe equals its golden bit
+   for bit, both kernels launched, no library convolution.  Every worker
+   ends with ``SIGTERM`` (its drain) and must exit 0.
 D. BASELINE config #5 at full width (S=(5,5,5), filters (64,128,256), dense
    512, 100 classes, pop 50, batch 256, bf16, the proxy schedule), as
    ``examples/torch_cifar100_deep.py`` runs it: ``RussianRouletteGA.run(1)``
@@ -113,7 +137,8 @@ Then the card's ``nvidia-smi`` name and power limit, the
 ``{"kernels": [...]}`` line (each kernel's main-path launches, error and
 per-train-step times at config #2, under ``deep`` the same at config #5
 with the launches of phase D's GA, under ``async`` at P=2 with phase A's
-launches) and, last, ``{"ok": true, "device": {...}}``.
+launches, under ``distributed`` phase W's launches) and, last,
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1019,6 +1044,276 @@ def phase_async(torch, x, y, workdir: str):
     return result, launches
 
 
+#: Phase W: BASELINE config #4 — a master, and worker processes on the card.
+W_GENERATIONS, W2_GENERATIONS = 3, 2
+#: Seconds a worker process may take to reach the broker (interpreter,
+#: torch, the dataset, CUDA's context and the compile-cache prefetch).
+W_JOIN_S = 300.0
+
+
+def _worker(workdir: str, tag: str, port: int, capacity: int, url: str, env=None, extra=()):
+    """Start ``python -m gentun_tpu_torch.distributed.worker`` as a process
+    (never a fork of this one: it holds a CUDA context); its output goes to
+    ``<workdir>/worker_<tag>.log``."""
+    path = os.path.join(workdir, f"worker_{tag}.log")
+    with open(path, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "gentun_tpu_torch.distributed.worker", "--port", str(port),
+             "--species", "genetic-cnn", "--dataset", "cifar10", "--n", str(N_DATA),
+             "--capacity", str(capacity), "--compile-cache-url", url, "--worker-id", f"w-{tag}",
+             *extra],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, **(env or {})),
+            stdout=fh, stderr=subprocess.STDOUT)
+    return proc, path
+
+
+def _await_fleet(pop, procs, n: int) -> float:
+    """Wait until ``n`` workers are connected; fails if one exits first."""
+    t0 = time.monotonic()
+    while pop.broker.fleet_members() < n:
+        for proc, path in procs:
+            check(proc.poll() is None, f"worker exited before joining ({path})")
+        check(time.monotonic() - t0 < W_JOIN_S, f"{n} worker(s) joined within {W_JOIN_S} s")
+        time.sleep(0.2)
+    return time.monotonic() - t0
+
+
+def _drain(procs) -> None:
+    """SIGTERM each worker, so that its graceful drain runs."""
+    import signal
+
+    for proc, _ in procs:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+
+
+def _kill(procs) -> None:
+    for proc, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def _reap(procs):
+    """Wait for drained workers (after their broker closed) and gate on their
+    exit codes; returns each one's log text."""
+    logs = []
+    try:
+        for proc, path in procs:
+            rc = proc.wait(timeout=120)
+            with open(path) as fh:
+                logs.append(fh.read())
+            check(rc == 0, f"worker exit code {rc} ({path}):\n{logs[-1][-3000:]}")
+    finally:
+        _kill(procs)
+    return logs
+
+
+def _worker_usage(text: str):
+    """What a worker logged at its exit: its kernel launches and, once it
+    used the card, its peak device memory (allocated and reserved)."""
+    tail = text.rsplit(" job(s); ", 1)
+    check(len(tail) == 2, "the worker logged its kernel launches at exit")
+    return json.loads(tail[1].splitlines()[0])
+
+
+def _search(ga):
+    """A search's history without its walls, and every fitness it measured."""
+    hist = [{k: r[k] for k in ("generation", "best_fitness", "best_genes", "evaluated")}
+            for r in ga.history]
+    return hist, {k: float(v).hex() for k, v in ga.population.fitness_cache.items()}
+
+
+def _gpu_apps(torch):
+    """``nvidia-smi``'s compute processes as it prints them, and the card's
+    used bytes by ``cudaMemGetInfo`` (every process on it)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    free, total = torch.cuda.mem_get_info()
+    return {"nvidia_smi": out.stdout.strip().splitlines(), "card_used_bytes": total - free}
+
+
+def phase_workers(torch, workdir: str, single_rate: float):
+    """BASELINE config #4 with the port's worker processes on the card (see
+    the module docstring, phase W).  Returns the result and the launches of
+    W1's worker and of W3's in-process client."""
+    import threading
+
+    from gentun_tpu_torch import GeneticCnnIndividual, Population, RussianRouletteGA
+    from gentun_tpu_torch.distributed import DistributedPopulation, GentunClient, JobBroker
+    from gentun_tpu_torch.distributed import compile_service as cs
+    from gentun_tpu_torch.ops import _build, pop_conv
+    from gentun_tpu_torch.telemetry import lineage
+    from gentun_tpu_torch.telemetry.canary import CanaryDaemon, GoldenSet
+    from gentun_tpu_torch.utils.datasets import load_cifar10
+    from gentun_tpu_torch.utils.fitness_store import fidelity_fingerprint
+
+    os.makedirs(workdir, exist_ok=True)
+    x, y, _ = load_cifar10(n=N_DATA)
+    svc = cs.CompileService(port=0).start()
+    result, w1, w2 = {}, [], []
+    try:
+        # W1: one worker process serves the master's search.
+        t0 = time.monotonic()
+        with DistributedPopulation(GeneticCnnIndividual, size=POP, seed=0,
+                                   additional_parameters=dict(PROXY), host="127.0.0.1", port=0,
+                                   evaluate_retries=3, job_timeout=900.0) as pop:
+            w1.append(_worker(workdir, "w1", pop.broker_address[1], POP, svc.url))
+            try:
+                join_s = _await_fleet(pop, w1, 1)
+                ga = RussianRouletteGA(pop, seed=0)
+                t1 = time.monotonic()
+                ga.run(W_GENERATIONS)
+                dist_s = time.monotonic() - t1
+                dist = _search(ga)
+            finally:
+                _drain(w1)
+        w1_log, = _reap(w1)
+        w1_usage = _worker_usage(w1_log)
+        w1_launches = w1_usage["kernel_launches"]
+        log(f"[W1] worker joined in {join_s:.1f} s (process start to connection); "
+            f"{W_GENERATIONS} generations in {dist_s:.3f} s; phase {time.monotonic() - t0:.1f} s; "
+            f"the worker's kernel launches {w1_launches}, peak memory allocated "
+            f"{w1_usage.get('peak_memory_allocated', 0) / 2**30:.2f} GiB, reserved "
+            f"{w1_usage.get('peak_memory_reserved', 0) / 2**30:.2f} GiB")
+        for k, n in w1_launches.items():
+            check(n > 0, f"{k} launched in W1's worker")
+        t1 = time.monotonic()
+        local_pop = Population(GeneticCnnIndividual, x_train=x, y_train=y, size=POP, seed=0,
+                               additional_parameters=dict(PROXY))
+        local_ga = RussianRouletteGA(local_pop, seed=0)
+        local_ga.run(W_GENERATIONS)
+        local_s = time.monotonic() - t1
+        local = _search(local_ga)
+        d_walls = [r["eval_wall_s"] for r in ga.history]
+        l_walls = [r["eval_wall_s"] for r in local_ga.history]
+        evaluated = sum(r["evaluated"] for r in ga.history)
+        rates = {"distributed": evaluated / sum(d_walls) * 3600.0,
+                 "single": evaluated / sum(l_walls) * 3600.0,
+                 "distributed_steady": sum(r["evaluated"] for r in ga.history[1:])
+                 / max(sum(d_walls[1:]), 1e-3) * 3600.0,
+                 "phase3": single_rate}
+        log(f"[W1] per-generation walls (evaluate), distributed {d_walls} s, single-process "
+            f"{l_walls} s; evaluated {[r['evaluated'] for r in ga.history]}; individuals/hour "
+            f"{json.dumps({k: round(v, 1) for k, v in rates.items()})}; single-process run "
+            f"{local_s:.3f} s")
+        retries = sum(r.get("evaluate_retries", 0) for r in ga.history)
+        log(f"[W1] evaluate retries {retries} (a missed heartbeat or a failed job would retry)")
+        check(dist == local, "W1: the distributed search equals the single-process search bit "
+                             "for bit (history and every fitness)")
+        log(f"[W1] history and all {len(local[1])} fitnesses equal bit for bit")
+        result["W1"] = {"join_s": join_s, "walls_distributed_s": d_walls,
+                        "walls_single_s": l_walls, "evaluated": evaluated, "rates": rates,
+                        "retries": retries, "launches": w1_launches, "worker": w1_usage}
+
+        # W2: two worker processes share the card; the second fetches the
+        # kernel library from the compile service instead of building it.
+        lib = _build.library_path()
+        fp = cs.platform_fingerprint(probe_devices=True)
+        names = svc.list_names(fp)
+        check(lib.name in names, f"W1's worker published {lib.name} ({names})")
+        size = lib.stat().st_size
+        check(size <= cs._MAX_BLOB_BYTES, f"the library's {size} bytes fit the service's "
+                                          f"{cs._MAX_BLOB_BYTES}-byte blob limit")
+        cold = os.path.join(workdir, "w2_kernel_cache")
+        if os.path.isdir(cold):
+            import shutil
+
+            shutil.rmtree(cold)
+        os.makedirs(cold)
+        t0 = time.monotonic()
+        with DistributedPopulation(GeneticCnnIndividual, size=POP, seed=0,
+                                   additional_parameters=dict(PROXY), host="127.0.0.1", port=0,
+                                   evaluate_retries=3, job_timeout=900.0) as pop:
+            port = pop.broker_address[1]
+            w2.append(_worker(workdir, "w2a", port, POP // 2, svc.url,
+                              extra=("--prefetch-depth", "0")))
+            w2.append(_worker(workdir, "w2b", port, POP // 2, svc.url,
+                              extra=("--prefetch-depth", "0"), env={"GENTUN_TORCH_CACHE_DIR": cold}))
+            try:
+                join2_s = _await_fleet(pop, w2, 2)
+                ga2 = RussianRouletteGA(pop, seed=0)
+                t1 = time.monotonic()
+                ga2.run(W2_GENERATIONS)
+                two_s = time.monotonic() - t1
+                two = _search(ga2)
+                apps = _gpu_apps(torch)
+            finally:
+                _drain(w2)
+        logs = _reap(w2)
+        fetched = os.path.join(cold, lib.name)
+        check(os.path.exists(fetched) and open(fetched, "rb").read() == lib.read_bytes(),
+              "W2: the second worker's library has the first's bytes")
+        check("artifact(s) fetched" in logs[1] and "with nvcc" not in logs[1],
+              "W2: the second worker fetched the library and did not run nvcc")
+        served = [text.count(" done: fitness ") for text in logs]
+        check(all(n > 0 for n in served), f"W2: both workers served jobs ({served})")
+        check(two[0] == dist[0][:W2_GENERATIONS], "W2: the history equals W1's first generations")
+        check(all(local[1][k] == v for k, v in two[1].items()),
+              "W2: every fitness equals W1's for the same genome, bit for bit")
+        w2_walls = [r["eval_wall_s"] for r in ga2.history]
+        mem = {role: _worker_usage(text) for role, text in zip(("w2a", "w2b"), logs)}
+        log(f"[W2] two workers joined in {join2_s:.1f} s; {W2_GENERATIONS} generations in "
+            f"{two_s:.3f} s, walls {w2_walls} s (W1: {d_walls[:W2_GENERATIONS]} s); jobs served "
+            f"{served}; {len(two[1])} fitnesses equal W1's; library {lib.name} "
+            f"{size} bytes, fetched by the second worker; with both alive the card held "
+            f"{apps['card_used_bytes'] / 2**30:.2f} GiB (this process "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved), nvidia-smi compute "
+            f"apps {apps['nvidia_smi']}; workers at exit {json.dumps(mem)}; "
+            f"phase {time.monotonic() - t0:.1f} s")
+        result["W2"] = {"join_s": join2_s, "walls_s": w2_walls, "served": served,
+                        "library_bytes": size, "workers": mem, "apps": apps,
+                        "own_reserved_bytes": torch.cuda.memory_reserved()}
+    finally:
+        _kill(w1 + w2)
+        svc.stop()
+
+    # W3: a canary probe served by a client thread in this process, under
+    # the library-conv counter (entered inside the thread).
+    genes = local_pop[0].get_genes()
+    golden_path = os.path.join(workdir, "canary_golden.json")
+    if os.path.exists(golden_path):
+        os.remove(golden_path)
+    golden = local_pop[0].get_fitness()
+    GoldenSet(golden_path).seal(GoldenSet.key("config4", fidelity_fingerprint(PROXY),
+                                              lineage.genome_key(genes)), golden)
+    broker = JobBroker(port=0).start()
+    stop, counter = threading.Event(), conv_counter()
+    client = GentunClient(GeneticCnnIndividual, x, y, port=broker.address[1], capacity=2,
+                          heartbeat_interval=1.0, reconnect_delay=0.1)
+
+    def serve():
+        with counter:
+            client.work(stop_event=stop)
+
+    t = threading.Thread(target=serve, name="w3-client", daemon=True)
+    t.start()
+    canary = CanaryDaemon([f"127.0.0.1:{broker.address[1]}"],
+                          [{"genes": genes, "additional_parameters": dict(PROXY)}],
+                          space_key="config4", probe_interval=3600, probe_timeout=600,
+                          golden_path=golden_path, serve_http=False)
+    try:
+        for k in pop_conv.LAUNCHES:
+            pop_conv.LAUNCHES[k] = 0
+        probe = canary.probe_once()
+        w3_launches = dict(pop_conv.LAUNCHES)
+    finally:
+        canary.stop()
+        stop.set()
+        t.join(timeout=120)
+        broker.stop()
+    log(f"[W3] canary probe: {probe.get('result')}, fitness {probe.get('fitness')!r} vs golden "
+        f"{golden!r}, e2e {probe.get('e2e_s')} s; launches {w3_launches}; library convs "
+        f"{counter.convs}")
+    check(probe.get("result") == "ok" and not probe.get("newly_sealed")
+          and probe.get("fitness") == golden, f"W3: the probe equals its golden ({probe})")
+    for k, n in w3_launches.items():
+        check(n > 0, f"{k} launched for the canary probe")
+    check(not counter.convs, f"W3: no library convolution ({counter.convs})")
+    result["W3"] = {"probe": probe, "launches": w3_launches}
+    return result, w1_launches, w3_launches
+
+
 def conv_counter():
     """A dispatch mode that counts every aten convolution op run inside it
     (the port's kernels are no aten op; a library conv would be one)."""
@@ -1294,13 +1589,15 @@ def _bound_by(tot) -> str:
 
 
 def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
-                 async_per_step, async_launches):
+                 async_per_step, async_launches, worker_launches, canary_launches):
     """The ``{"kernels": [...]}`` record: each kernel's launches on the main
     path (phase 3) and, from phase K, its error against the plain version and
     its times summed over the calls of one config #2 train step (bf16); under
     ``deep`` the same for config #5 (the launches of phase D's GA, phase K5's
     times), under ``async`` for the steady-state search (phase A's launches,
-    its P=2 times)."""
+    its P=2 times), under ``distributed`` the launches of phase W: W1's worker
+    process over its search, and the in-process client serving W3's canary
+    probe."""
     where = replaces(KERNEL_SOURCE)
     out = []
     for name, tot in per_step.items():
@@ -1327,6 +1624,11 @@ def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
                 "bound_by": _bound_by(asy), "library_ms": asy["library_ms"],
                 "per": f"config #2 train step, bf16, pop 2 (one genome an evaluation), "
                        f"batch 256: {asy['calls']} calls",
+            },
+            "distributed": {
+                "launches": worker_launches[name], "canary_launches": canary_launches[name],
+                "per": f"config #4: {W_GENERATIONS} generations of pop {POP} served by one "
+                       f"worker process (capacity {POP}); the canary's one-genome probe",
             },
         })
     return {"kernels": out}
@@ -1368,6 +1670,12 @@ def main() -> int:
     step_kernels(torch, "A", NODES, FILTERS, 2, "bfloat16", async_per_step)
     log_per_step("A", "config #2 (P=2)", async_per_step)
     del x, y, genomes, bf16_calls, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    workers, worker_launches, canary_launches = phase_workers(
+        torch, os.path.join(REPO, "build", "chip_smoke"), main_result["individuals_per_hour"])
+    gc.collect()
+    torch.cuda.empty_cache()
     deep, deep_launches, deep_slots, (x5, y5, pair) = phase_deep(
         torch, os.path.join(REPO, "build", "chip_smoke"))
     gc.collect()
@@ -1377,11 +1685,13 @@ def main() -> int:
     summary = {"main_path": main_result, "launches": launches, "purity_max_abs_diff": purity,
                "differing_grad_leaves": leaves, "executors": executors, "deep": deep,
                "deep_launches": deep_launches, "budget": budget, "async": asynchronous,
+               "workers": workers,
                "card": smi, "total_s": time.monotonic() - t_start}
     log(f"[6] summary: {json.dumps(summary, default=str)}")
     print(smi)
     print(json.dumps(kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
-                                  async_per_step, async_launches)))
+                                  async_per_step, async_launches, worker_launches,
+                                  canary_launches)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

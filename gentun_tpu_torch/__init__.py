@@ -9,7 +9,9 @@ is).  It carries the same module tree and names:
   at once on the CUDA device (``ops``, ``models``);
 - the steady-state engine with its fidelity ladder and surrogate gate
   (``algorithms_async``, ``surrogate``), the boosting control-path species
-  (host-side, sklearn or xgboost imported lazily) and the telemetry plane.
+  (host-side, sklearn or xgboost imported lazily), the telemetry plane and
+  the distributed plane (``distributed``: broker, master, worker CLI,
+  fitness and compile services, autoscaler).
 
 The port imports ``torch`` and never ``jax``, and nothing of the JAX package:
 where it needs one of the reference's jax-free modules it keeps its own copy.
@@ -73,5 +75,21 @@ try:  # pragma: no cover
     from .models.boosting import BoostingModel  # noqa: F401
 
     __all__.append("BoostingModel")
+except ImportError:  # pragma: no cover
+    pass
+
+try:  # pragma: no cover
+    from .distributed.server import DistributedPopulation, DistributedGridPopulation  # noqa: F401
+    from .distributed.client import GentunClient  # noqa: F401
+    from .distributed.broker import GatherTimeout, JobBroker, JobFailed  # noqa: F401
+
+    __all__ += [
+        "DistributedPopulation",
+        "DistributedGridPopulation",
+        "GentunClient",
+        "JobBroker",
+        "JobFailed",
+        "GatherTimeout",
+    ]
 except ImportError:  # pragma: no cover
     pass

@@ -1,0 +1,797 @@
+"""Fleet-wide build amortization: a networked cache of the built kernel library.
+
+The port compiles one thing at run time: ``ops/_build.py`` runs ``nvcc``
+over ``csrc/`` once per set of sources and writes
+``libgentun_kernels_<source hash>.so`` into the kernel cache directory
+(``utils/kernel_cache.py``).  That takes minutes for a cold worker, and a
+directory only reaches processes that mount it.  This module promotes the
+directory to a small network service, the sibling of
+``fitness_service.py`` (same stdlib ``ThreadingHTTPServer`` + bounded LRU
++ ``/healthz``/``/statusz`` + version-skew-409 + standalone ``python -m``
+pattern), so whichever worker builds the library first publishes it and
+every later joiner fetches it instead of running ``nvcc``.
+
+Three pieces, all stdlib:
+
+- :class:`CompileService` — a byte-budget LRU of built artifacts.  Blobs
+  are content-addressed by their file name (the library's name carries
+  the hash of its sources and ``nvcc`` flags) and namespaced by a
+  **platform fingerprint** (:func:`platform_fingerprint`: torch, its CUDA
+  toolkit, the driver, the device's SM, the ``nvcc`` flags and the source
+  hash).  A fetch or publish whose fingerprint disagrees with the one an
+  entry is stored under is refused with HTTP 409 — an incompatible binary
+  can never be served, the same all-writers-upgrade-together guard the
+  fitness service applies to its store version.
+- :class:`CompileServiceClient` — read-through ``prefetch()`` of the
+  fleet's entries into the local cache dir *before* the first kernel
+  launch, and write-behind ``scan_publish()`` of freshly built entries (an
+  ``os.stat`` dir-mtime probe keeps the no-change path off the dispatch
+  hot cost).  Any network failure degrades the client for a cooldown
+  window with exactly ONE ``compile_service_degraded`` telemetry event:
+  cache downtime must never fail a search, it only costs builds.
+- a publish hook (``utils/kernel_cache.register_publish_hook``) so
+  ``models/cnn.py::_prepare_population_setup`` can trigger a publish scan
+  without the models layer importing the distributed package.
+
+A fetched library is native code that the worker loads with ``ctypes``,
+and only under the name its own sources and flags hash to.  Like the ops
+endpoints, the service is unauthenticated and binds 127.0.0.1 by default:
+use only a compile service you trust, on a trusted network.  Run it
+standalone with ``python -m gentun_tpu_torch.distributed.compile_service
+--port 9737``, or in-process via ``CompileService(...).start()``.
+"""
+
+from __future__ import annotations
+
+import base64
+import binascii
+import hashlib
+import json
+import logging
+import os
+import re
+import threading
+import time
+import urllib.error
+import urllib.request
+from collections import OrderedDict, deque
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, List, Optional, Tuple
+
+from ..telemetry import spans as _tele
+from ..telemetry.registry import get_registry as _get_registry
+from ..utils.kernel_cache import (
+    list_cache_entries,
+    register_publish_hook,
+    unregister_publish_hook,
+)
+from .fitness_service import parse_cache_url
+
+__all__ = [
+    "COMPILE_PROTOCOL",
+    "CompileService",
+    "CompileServiceClient",
+    "parse_cache_url",
+    "platform_components",
+    "platform_fingerprint",
+]
+
+logger = logging.getLogger("gentun_tpu_torch.distributed")
+
+#: Wire protocol version; bump on any incompatible change to the message
+#: shapes below.  Enforced with HTTP 409 exactly like ``FITNESS_PROTOCOL``.
+COMPILE_PROTOCOL = 1
+
+#: Request-body ceiling.  Built libraries are far larger than fitness
+#: floats (a few MB, base64 inflates by 4/3), so the ceiling is raised well
+#: above the fitness service's 4 MiB.
+_MAX_BODY_BYTES = 64 * 1024 * 1024
+
+#: Per-blob ceiling: a single artifact larger than this is never shipped
+#: (it would monopolize the service budget; it simply stays local).
+_MAX_BLOB_BYTES = 32 * 1024 * 1024
+
+#: Cache-entry names are library file names with a hash in them.  Both
+#: sides refuse anything else: the client writes fetched blobs to the
+#: filesystem under this name, so the charset IS the path-traversal guard.
+_SAFE_NAME = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._+=-]{0,254}$")
+
+
+def _safe_name(name: Any) -> bool:
+    return isinstance(name, str) and bool(_SAFE_NAME.match(name)) and ".." not in name
+
+
+def platform_components(probe_devices: bool = True) -> Dict[str, str]:
+    """The facts that decide whether a built kernel library is compatible.
+
+    The torch version and the CUDA toolkit it was built with, the driver
+    and the device's SM (a library built for ``sm_90a`` must never reach
+    another architecture), the ``nvcc`` flags, and the hash of the kernel
+    sources that ``ops/_build.library_path()`` puts in the library's
+    name.  ``probe_devices=False`` never initializes CUDA — a worker whose
+    species never touches the card must not pay for it; such clients still
+    get a stable fingerprint, they just never share entries with
+    device-probed ones.
+    """
+    from ..ops import _build
+    from ..telemetry.buildinfo import _driver_version
+
+    comps: Dict[str, str] = {}
+    try:
+        import torch
+
+        comps["torch"] = str(torch.__version__)
+        comps["cuda"] = str(torch.version.cuda or "none")
+    except ImportError:  # pragma: no cover - the port always has torch
+        comps["torch"] = comps["cuda"] = "none"
+    if probe_devices:
+        try:
+            major, minor = torch.cuda.get_device_capability()
+            comps["sm"] = f"sm_{major}{minor}"
+            comps["driver"] = _driver_version()
+        except Exception:  # noqa: BLE001 - no device: a lonely namespace
+            comps["sm"] = comps["driver"] = "none"
+    else:
+        comps["sm"] = comps["driver"] = "unprobed"
+    comps["nvcc_flags"] = " ".join(_build.NVCC_FLAGS)
+    comps["kernel_sources"] = _build.source_hash()
+    return comps
+
+
+def platform_fingerprint(probe_devices: bool = True) -> str:
+    """64-bit blake2b over the canonical components JSON (64-bit hash width)."""
+    blob = json.dumps(platform_components(probe_devices=probe_devices),
+                      sort_keys=True, separators=(",", ":")).encode()
+    return hashlib.blake2b(blob, digest_size=8).hexdigest()
+
+
+class FingerprintConflict(Exception):
+    """An entry name exists under a different platform fingerprint.
+
+    Names carry the hash of the sources and flags, so two *compatible*
+    platforms cannot
+    legitimately collide on a name — a conflict means an incompatible
+    binary is one fetch away from being served.  The handler maps this to
+    HTTP 409 with both fingerprints so the operator can see which side is
+    skewed.
+    """
+
+    def __init__(self, name: str, stored: str, requested: str):
+        super().__init__(
+            f"entry {name!r} is stored under platform fingerprint {stored}, "
+            f"request carries {requested}")
+        self.name = name
+        self.stored = stored
+        self.requested = requested
+
+
+class _Handler(BaseHTTPRequestHandler):
+    """Request handler; ``self.server.service`` is the CompileService."""
+
+    server_version = "gentun-compile/1"
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):  # noqa: D102 - silence stderr chatter
+        pass
+
+    def _send_json(self, code: int, obj: Any) -> None:
+        body = json.dumps(obj, separators=(",", ":")).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _read_body(self) -> Optional[Any]:
+        try:
+            n = int(self.headers.get("Content-Length", "0"))
+        except ValueError:
+            n = -1
+        if not 0 < n <= _MAX_BODY_BYTES:
+            self._send_json(413, {"error": f"body length {n} out of range"})
+            return None
+        try:
+            return json.loads(self.rfile.read(n).decode())
+        except (ValueError, UnicodeDecodeError) as e:
+            self._send_json(400, {"error": f"bad json: {e}"})
+            return None
+
+    def _check_request(self, msg: Dict[str, Any]) -> Optional[str]:
+        """Protocol-skew 409 + fingerprint extraction; None refuses."""
+        proto = msg.get("protocol")
+        if proto != COMPILE_PROTOCOL:
+            self._send_json(409, {
+                "error": "version skew",
+                "protocol": COMPILE_PROTOCOL,
+                "client_protocol": proto,
+            })
+            return None
+        fp = msg.get("fingerprint")
+        if not isinstance(fp, str) or not fp:
+            self._send_json(400, {"error": "fingerprint must be a non-empty string"})
+            return None
+        return fp
+
+    def do_GET(self):  # noqa: N802 - http.server API
+        path = self.path.split("?", 1)[0].rstrip("/") or "/"
+        svc = self.server.service  # type: ignore[attr-defined]
+        if path in ("/", "/healthz"):
+            self._send_json(200, {"status": "ok", **svc.stats()})
+        elif path == "/statusz":
+            self._send_json(200, svc.stats())
+        else:
+            self._send_json(404, {"error": f"no route {path}"})
+
+    def do_POST(self):  # noqa: N802 - http.server API
+        path = self.path.split("?", 1)[0].rstrip("/")
+        svc = self.server.service  # type: ignore[attr-defined]
+        msg = self._read_body()
+        if msg is None:
+            return
+        if not isinstance(msg, dict):
+            self._send_json(400, {"error": "body must be an object"})
+            return
+        fp = self._check_request(msg)
+        if fp is None:
+            return
+        try:
+            if path == "/v1/list":
+                self._send_json(200, {"names": svc.list_names(fp)})
+            elif path == "/v1/fetch":
+                names = msg.get("names")
+                if not isinstance(names, list):
+                    self._send_json(400, {"error": "names must be a list"})
+                    return
+                blobs = svc.fetch(fp, names)
+                self._send_json(200, {"blobs": {
+                    n: base64.b64encode(b).decode("ascii")
+                    for n, b in blobs.items()
+                }})
+            elif path == "/v1/publish":
+                entries = msg.get("entries")
+                if not isinstance(entries, list):
+                    self._send_json(400, {"error": "entries must be a list"})
+                    return
+                decoded: List[Tuple[str, bytes]] = []
+                for entry in entries:
+                    if (not isinstance(entry, (list, tuple)) or len(entry) != 2
+                            or not _safe_name(entry[0])
+                            or not isinstance(entry[1], str)):
+                        continue
+                    try:
+                        decoded.append((entry[0], base64.b64decode(
+                            entry[1], validate=True)))
+                    except (binascii.Error, ValueError):
+                        continue
+                self._send_json(200, {"stored": svc.publish(fp, decoded)})
+            else:
+                self._send_json(404, {"error": f"no route {path}"})
+        except FingerprintConflict as e:
+            self._send_json(409, {
+                "error": "platform fingerprint mismatch",
+                "name": e.name,
+                "stored_fingerprint": e.stored,
+                "client_fingerprint": e.requested,
+            })
+
+
+class CompileService:
+    """Byte-budget LRU of built artifacts behind a ThreadingHTTPServer.
+
+    State is one ``OrderedDict[(fingerprint, name) → bytes]`` under one
+    lock — fetches ``move_to_end`` and publishes evict from the cold end
+    while the total payload exceeds ``max_bytes`` (artifacts vary by
+    orders of magnitude, so the budget is bytes, not entries).  A
+    name→fingerprint index detects cross-platform conflicts
+    (:class:`FingerprintConflict` → 409).  Counters are served on
+    ``/statusz`` and, when telemetry is enabled in the hosting process,
+    mirrored to the metrics registry as
+    ``compile_cache_{hits,misses,publishes,evictions}_total``.
+    """
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 max_bytes: int = 1 * 1024 * 1024 * 1024):
+        if max_bytes <= 0:
+            raise ValueError(f"max_bytes must be positive, got {max_bytes}")
+        self.max_bytes = int(max_bytes)
+        self._lock = threading.Lock()
+        self._blobs: "OrderedDict[Tuple[str, str], bytes]" = OrderedDict()
+        self._owner: Dict[str, str] = {}  # name → fingerprint
+        self._bytes = 0
+        self._hits = 0
+        self._misses = 0
+        self._puts = 0
+        self._evictions = 0
+        self._conflicts = 0
+        self._started = time.time()
+        self._httpd = ThreadingHTTPServer((host, port), _Handler)
+        self._httpd.daemon_threads = True
+        self._httpd.service = self  # type: ignore[attr-defined]
+        self._thread: Optional[threading.Thread] = None
+
+    # -- address -----------------------------------------------------------
+
+    @property
+    def address(self) -> Tuple[str, int]:
+        return self._httpd.server_address[:2]
+
+    @property
+    def url(self) -> str:
+        host, port = self.address
+        return f"http://{host}:{port}"
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> "CompileService":
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, kwargs={"poll_interval": 0.25},
+            name="compile-service", daemon=True)
+        self._thread.start()
+        logger.info("compile service serving on %s (budget %d MiB)",
+                    self.url, self.max_bytes // (1024 * 1024))
+        return self
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+    # -- cache ops (also usable in-process, no HTTP) -----------------------
+
+    def _check_owner(self, fp: str, name: str) -> None:
+        owner = self._owner.get(name)
+        if owner is not None and owner != fp:
+            self._conflicts += 1
+            raise FingerprintConflict(name, owner, fp)
+
+    def list_names(self, fp: str) -> List[str]:
+        with self._lock:
+            return [name for (f, name) in self._blobs if f == fp]
+
+    def fetch(self, fp: str, names: List[Any]) -> Dict[str, bytes]:
+        out: Dict[str, bytes] = {}
+        n_miss = 0
+        with self._lock:
+            for name in names:
+                if not _safe_name(name):
+                    n_miss += 1
+                    continue
+                self._check_owner(fp, name)
+                key = (fp, name)
+                if key in self._blobs:
+                    self._blobs.move_to_end(key)
+                    out[name] = self._blobs[key]
+                else:
+                    n_miss += 1
+            self._hits += len(out)
+            self._misses += n_miss
+        if _tele.enabled():
+            reg = _get_registry()
+            if out:
+                reg.counter("compile_cache_hits_total").inc(len(out))
+            if n_miss:
+                reg.counter("compile_cache_misses_total").inc(n_miss)
+        return out
+
+    def publish(self, fp: str, entries: List[Tuple[str, bytes]]) -> int:
+        stored = 0
+        evicted = 0
+        with self._lock:
+            for name, data in entries:
+                if not _safe_name(name) or not isinstance(data, bytes):
+                    continue
+                if len(data) > min(self.max_bytes, _MAX_BLOB_BYTES):
+                    continue  # would monopolize (or instantly blow) the budget
+                self._check_owner(fp, name)
+                key = (fp, name)
+                old = self._blobs.get(key)
+                if old is not None:
+                    # Idempotent re-publish: content-addressed names mean the
+                    # payload is the same; just refresh recency.
+                    self._bytes -= len(old)
+                self._blobs[key] = data
+                self._blobs.move_to_end(key)
+                self._owner[name] = fp
+                self._bytes += len(data)
+                stored += 1
+            self._puts += stored
+            while self._bytes > self.max_bytes and self._blobs:
+                (f, name), data = self._blobs.popitem(last=False)
+                self._owner.pop(name, None)
+                self._bytes -= len(data)
+                evicted += 1
+            self._evictions += evicted
+        if _tele.enabled():
+            reg = _get_registry()
+            if stored:
+                reg.counter("compile_cache_publishes_total").inc(stored)
+            if evicted:
+                reg.counter("compile_cache_evictions_total").inc(evicted)
+        return stored
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "entries": len(self._blobs),
+                "bytes": self._bytes,
+                "max_bytes": self.max_bytes,
+                "fingerprints": len({f for (f, _n) in self._blobs}),
+                "hits": self._hits,
+                "misses": self._misses,
+                "puts": self._puts,
+                "evictions": self._evictions,
+                "conflicts": self._conflicts,
+                "uptime_s": round(time.time() - self._started, 3),
+                "protocol": COMPILE_PROTOCOL,
+            }
+
+
+class CompileServiceClient:
+    """Read-through prefetch + write-behind publish for the local kernel cache.
+
+    ``prefetch()`` lists the service's entries for this platform
+    fingerprint and downloads the ones missing locally into ``cache_dir``
+    (atomic tmp+rename, so a loader never sees a torn file) — call it
+    BEFORE the first kernel launch, and again after ``remesh()`` before re-advertising
+    capacity.  ``scan_publish()`` diffs the cache dir against what the
+    fleet already has and queues new entries on a write-behind flusher; an
+    ``os.stat`` dir-mtime probe makes the steady-state call a
+    sub-microsecond no-op, cheap enough to run after every batch.
+
+    Degradation mirrors :class:`FitnessServiceClient`: any network
+    failure (refused, timeout, 5xx, 409 skew) marks the service down for
+    ``cooldown`` seconds, during which nothing touches the socket; the
+    transition emits ONE ``compile_service_degraded`` telemetry event and
+    one warning.  Nothing in this class ever raises into the caller —
+    losing the service only costs builds, never a search.
+    """
+
+    def __init__(self, url: str, cache_dir: Optional[str] = None,
+                 timeout: float = 5.0, cooldown: float = 5.0,
+                 probe_devices: bool = True,
+                 fingerprint: Optional[str] = None,
+                 max_pending: int = 1024):
+        from ..utils.kernel_cache import default_cache_dir
+
+        self.url = parse_cache_url(url)
+        self.cache_dir = cache_dir if cache_dir is not None else default_cache_dir()
+        self.timeout = float(timeout)
+        self.cooldown = float(cooldown)
+        self._probe_devices = bool(probe_devices)
+        self._fp = fingerprint
+        self._down_until = 0.0
+        self._degraded = False
+        self._lock = threading.Lock()
+        self._fetched = 0
+        self._published = 0
+        self._compiled_local = 0
+        self._degraded_total = 0
+        # Names the fleet already has (listed remotely, fetched, or queued
+        # by us): scan_publish never re-ships them.
+        self._known: set = set()
+        self._last_dir_mtime_ns = -1
+        self._pending: deque = deque(maxlen=max_pending)
+        # Entries the flusher has taken off ``_pending`` whose publish has
+        # not landed yet; counted under ``_lock`` together with the take,
+        # so ``flush()`` never sees an empty queue while a POST is in flight.
+        self._inflight = 0
+        self._wake = threading.Event()
+        self._closed = False
+        self._flusher: Optional[threading.Thread] = None
+        # One stable bound method so kernel_cache's hook registry can
+        # register and unregister the same object.
+        self.publish_hook = self.scan_publish
+
+    @property
+    def fingerprint(self) -> str:
+        """Lazy: device probing (for device species) waits until first use."""
+        if self._fp is None:
+            self._fp = platform_fingerprint(probe_devices=self._probe_devices)
+        return self._fp
+
+    # -- availability ------------------------------------------------------
+
+    def available(self) -> bool:
+        with self._lock:
+            return time.monotonic() >= self._down_until
+
+    @property
+    def degraded(self) -> bool:
+        with self._lock:
+            return self._degraded
+
+    def _mark_down(self, err: Exception) -> None:
+        with self._lock:
+            self._down_until = time.monotonic() + self.cooldown
+            first = not self._degraded
+            self._degraded = True
+            self._degraded_total += 1
+        if first:
+            logger.warning(
+                "compile service %s unreachable (%s); degrading to "
+                "local-only compiles, retrying every %.1fs — the search "
+                "continues, this worker just compiles what it can't fetch",
+                self.url, err, self.cooldown)
+            _tele.record_event("compile_service_degraded", {
+                "url": self.url, "error": str(err)[:200],
+            })
+            if _tele.enabled():
+                _get_registry().counter("compile_service_degraded_total").inc()
+
+    def _mark_up(self) -> None:
+        with self._lock:
+            was = self._degraded
+            self._degraded = False
+        if was:
+            logger.info("compile service %s reachable again", self.url)
+
+    # -- http --------------------------------------------------------------
+
+    def _post(self, endpoint: str, payload: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        body = dict(payload)
+        body["v"] = 1
+        body["protocol"] = COMPILE_PROTOCOL
+        body["fingerprint"] = self.fingerprint
+        req = urllib.request.Request(
+            self.url + endpoint,
+            data=json.dumps(body, separators=(",", ":")).encode(),
+            headers={"Content-Type": "application/json"},
+            method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=self.timeout) as resp:
+                out = json.loads(resp.read().decode())
+            self._mark_up()
+            return out
+        except Exception as e:  # noqa: BLE001 - degradation boundary by design
+            self._mark_down(e)
+            return None
+
+    # -- read-through ------------------------------------------------------
+
+    def prefetch(self) -> int:
+        """Pull the fleet's entries for this platform into ``cache_dir``.
+
+        Returns the number of blobs written.  Never raises; a degraded or
+        empty service simply means the first compile pays full price.
+        """
+        if self.cache_dir is None or not self.available():
+            return 0
+        out = self._post("/v1/list", {})
+        if out is None:
+            return 0
+        names = [n for n in out.get("names", []) if _safe_name(n)]
+        self._known.update(names)  # fleet has them: never publish back
+        if not names:
+            return 0
+        try:
+            os.makedirs(self.cache_dir, exist_ok=True)
+            local = set(list_cache_entries(self.cache_dir))
+        except OSError as e:
+            logger.warning("compile prefetch: cache dir %s unusable (%s)",
+                           self.cache_dir, e)
+            return 0
+        missing = [n for n in names if n not in local]
+        if not missing:
+            return 0
+        t0 = time.monotonic()
+        fetched = 0
+        for i in range(0, len(missing), 32):
+            out = self._post("/v1/fetch", {"names": missing[i:i + 32]})
+            if out is None:
+                break
+            blobs = out.get("blobs")
+            if not isinstance(blobs, dict):
+                continue
+            for name, b64 in blobs.items():
+                if not _safe_name(name) or not isinstance(b64, str):
+                    continue
+                try:
+                    data = base64.b64decode(b64, validate=True)
+                except (binascii.Error, ValueError):
+                    continue
+                tmp = os.path.join(self.cache_dir, f".fetch-{os.getpid()}.tmp")
+                try:
+                    with open(tmp, "wb") as f:
+                        f.write(data)
+                    os.replace(tmp, os.path.join(self.cache_dir, name))
+                except OSError as e:
+                    logger.warning("compile prefetch: cannot write %s (%s)",
+                                   name, e)
+                    try:
+                        os.unlink(tmp)
+                    except OSError:
+                        pass
+                    continue
+                fetched += 1
+        if fetched:
+            dt = time.monotonic() - t0
+            reg = _get_registry()
+            reg.histogram("compile_fetch_seconds").observe(dt)
+            reg.counter("compile_cache_hits_total").inc(fetched)
+            with self._lock:
+                self._fetched += fetched
+            logger.info(
+                "compile prefetch: %d artifact(s) fetched from %s in %.3fs "
+                "— this worker skips those compiles", fetched, self.url, dt)
+        return fetched
+
+    # -- write-behind ------------------------------------------------------
+
+    def scan_publish(self) -> int:
+        """Queue cache entries the fleet doesn't have yet; returns #queued.
+
+        The fast path is one ``os.stat`` on the cache dir: when its mtime
+        is unchanged since the last scan there is nothing new and no
+        listing, hashing or HTTP happens — that cost rides the dispatch
+        loop, so it is gated in ``scripts/broker_throughput.py``.
+        """
+        if self._closed or self.cache_dir is None:
+            return 0
+        try:
+            st = os.stat(self.cache_dir)
+        except OSError:
+            return 0  # nothing compiled yet — dir doesn't even exist
+        if st.st_mtime_ns == self._last_dir_mtime_ns:
+            return 0
+        try:
+            entries = list_cache_entries(self.cache_dir)
+        except OSError:
+            return 0
+        # Stat taken BEFORE the listing: a write racing the scan bumps the
+        # mtime past `st` and re-triggers the next scan, never lost.
+        self._last_dir_mtime_ns = st.st_mtime_ns
+        queued = 0
+        for name, (size, _mtime) in entries.items():
+            if name in self._known or not _safe_name(name):
+                continue
+            if size > _MAX_BLOB_BYTES:
+                self._known.add(name)  # too big to ship; don't re-stat forever
+                continue
+            try:
+                with open(os.path.join(self.cache_dir, name), "rb") as f:
+                    data = f.read()
+            except OSError:
+                continue
+            self._known.add(name)
+            self._pending.append((name, data))
+            queued += 1
+        if queued:
+            with self._lock:
+                self._compiled_local += queued
+            reg = _get_registry()
+            # A locally-written entry IS a fleet cache miss: nobody had
+            # this shape, so this worker paid the compile.
+            reg.counter("compile_cache_misses_total").inc(queued)
+            reg.counter("compile_cache_publishes_total").inc(queued)
+            if self._flusher is None:
+                with self._lock:
+                    if self._flusher is None and not self._closed:
+                        self._flusher = threading.Thread(
+                            target=self._flush_loop, name="compile-publish",
+                            daemon=True)
+                        self._flusher.start()
+            self._wake.set()
+        return queued
+
+    def _drain_batch(self, cap_bytes: int = 8 * 1024 * 1024) -> List[Tuple[str, bytes]]:
+        batch: List[Tuple[str, bytes]] = []
+        total = 0
+        while self._pending and (not batch or total < cap_bytes):
+            try:
+                name, data = self._pending.popleft()
+            except IndexError:  # pragma: no cover - racing producer
+                break
+            batch.append((name, data))
+            total += len(data)
+        return batch
+
+    def _flush_loop(self) -> None:
+        while True:
+            self._wake.wait(timeout=0.5)
+            self._wake.clear()
+            if self._closed and not self._pending:
+                return
+            if not self._pending:
+                continue
+            if not self.available():
+                if self._closed:
+                    return  # closing while degraded: entries stay local
+                time.sleep(min(0.5, self.cooldown))
+                continue
+            with self._lock:
+                batch = self._drain_batch()
+                self._inflight += len(batch)
+            if batch:
+                out = self._post("/v1/publish", {"entries": [
+                    [n, base64.b64encode(d).decode("ascii")] for n, d in batch
+                ]})
+                with self._lock:
+                    if out is None:
+                        # Failed mid-flight: requeue so a transient blip
+                        # doesn't drop artifacts (deque maxlen bounds the
+                        # worst case).
+                        self._pending.extendleft(reversed(batch))
+                    else:
+                        self._published += len(batch)
+                    self._inflight -= len(batch)
+
+    def _unpublished(self) -> bool:
+        with self._lock:
+            return bool(self._pending) or self._inflight > 0
+
+    def flush(self, timeout: float = 5.0) -> bool:
+        """Best-effort wait until every queued entry's publish has landed:
+        nothing pending and nothing in flight."""
+        deadline = time.monotonic() + timeout
+        self._wake.set()
+        while self._unpublished() and time.monotonic() < deadline:
+            if not self.available():
+                return False
+            time.sleep(0.02)
+        return not self._unpublished()
+
+    def close(self, flush_timeout: float = 2.0) -> None:
+        """Final scan + flush what we can, then stop the flusher thread."""
+        unregister_publish_hook(self.publish_hook)
+        self.scan_publish()
+        self.flush(timeout=flush_timeout)
+        self._closed = True
+        self._wake.set()
+        t = self._flusher
+        if t is not None:
+            t.join(timeout=1.0)
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "url": self.url,
+                "cache_dir": self.cache_dir,
+                "fingerprint": self._fp,  # None until first wire use
+                "fetched": self._fetched,
+                "published": self._published,
+                "compiled_local": self._compiled_local,
+                "degraded": self._degraded,
+                "degraded_total": self._degraded_total,
+                "pending_publish": len(self._pending),
+            }
+
+
+def main(argv=None) -> int:
+    """Standalone service: ``python -m gentun_tpu_torch.distributed.compile_service``."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m gentun_tpu_torch.distributed.compile_service",
+        description="fleet-wide kernel-library cache service "
+                    "(point workers at it with --compile-cache-url)")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="bind address (default 127.0.0.1; the endpoints "
+                         "are unauthenticated — bind a routable address "
+                         "only on a trusted network)")
+    ap.add_argument("--port", type=int, default=9737,
+                    help="listen port (0 picks an ephemeral port, logged)")
+    ap.add_argument("--max-bytes", type=int, default=1 * 1024 * 1024 * 1024,
+                    help="byte budget before cold artifacts evict "
+                         "(default 1 GiB)")
+    args = ap.parse_args(argv)
+    if not 0 <= args.port <= 65535:
+        raise SystemExit(f"--port must be in [0, 65535], got {args.port}")
+    if args.max_bytes <= 0:
+        raise SystemExit(f"--max-bytes must be positive, got {args.max_bytes}")
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    svc = CompileService(host=args.host, port=args.port,
+                         max_bytes=args.max_bytes).start()
+    print(f"compile service on {svc.url} (ctrl-C to stop)", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        svc.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

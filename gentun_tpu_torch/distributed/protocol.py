@@ -1,0 +1,735 @@
+"""Wire protocol for the master↔worker control plane.
+
+Reference parity: gentun ships JSON jobs over RabbitMQ (AMQP) with an RPC
+reply queue + correlation ids (``gentun/server.py``/``client.py`` [PUB];
+SURVEY.md §3.2-3.3).  No broker exists in this environment (SURVEY.md §2.1),
+so the rebuild speaks its own minimal protocol: **newline-delimited JSON over
+TCP**, carrying exactly what the reference carried — genes, additional
+parameters, fitness scalars — and nothing else.  Genes are tiny by design;
+wire cost is irrelevant (SURVEY.md §1 "Workers own the training data").
+
+Message types:
+
+====================  =====================================================
+worker → broker       ``hello`` {worker_id, token, capacity}
+broker → worker       ``welcome`` {} | ``error`` {reason}
+worker → broker       ``ready`` {credit}        request up to `credit` jobs
+broker → worker       ``jobs`` {jobs: [{job_id, genes, additional_parameters}, ...]}
+worker → broker       ``result`` {job_id, fitness}   = the ack (ack-after-work)
+worker → broker       ``results`` {results: [{job_id, fitness}, ...]}  coalesced acks
+worker → broker       ``fail`` {job_id, reason}      evaluation raised
+worker → broker       ``ping`` {}               liveness, from a side thread
+====================  =====================================================
+
+``hello`` also carries advisory fields the broker uses for observability:
+``n_chips`` (the worker's accelerator count — denominates the master's
+per-chip metric) and ``backend`` (fitness-model class name — the broker
+warns on a heterogeneous fleet).
+
+Pipelined-dispatch field (new fields are OPTIONAL with conservative
+defaults, the same versioning convention as the telemetry fields below —
+old workers and old masters interoperate unchanged):
+
+- ``hello`` may carry ``prefetch_depth`` (int ≥ 0): how many jobs BEYOND
+  ``capacity`` this worker wants queued locally so the next window is
+  already decoded when the current one finishes (double buffering —
+  ``client.py``).  A broker that understands it extends the worker's
+  credit ceiling to ``capacity + prefetch_depth``
+  (``broker._parse_prefetch`` clamps to ``[0, 4 × capacity]``); an old
+  broker ignores the field and clamps credit at ``capacity``, which
+  degrades the worker to the un-pipelined flow without any protocol
+  error.  A worker that never sends it (old worker, or
+  ``prefetch_depth=0``) gets exactly the pre-pipelining behavior on
+  both ends.
+
+Elastic-membership messages (same OPTIONAL convention — both are NEW
+worker→broker types; a broker that doesn't understand them logs-and-drops
+the frame, which degrades the worker to the inelastic flow without a
+protocol error):
+
+- ``drain`` {requeue: [job_id, ...]}: the worker announces an orderly
+  exit — it will finish what it has STARTED, hand back what it merely
+  QUEUED (the listed prefetched-but-unstarted job ids), and wants no
+  further dispatch.  The broker zeroes the worker's credit, requeues the
+  listed ids immediately, and excludes the worker from
+  ``fleet_capacity``/``fleet_prefetch`` so elastic masters shrink their
+  in-flight target right away.  The requeue list is a promptness
+  optimization only: at-least-once disconnect requeue remains the
+  correctness net, so a lost or duplicated ``drain`` frame is harmless.
+- ``advertise`` {capacity?, prefetch_depth?}: mid-run re-advertisement of
+  the ``hello`` sizing fields (a worker gained/lost chips, or an operator
+  retuned prefetch).  The broker updates the worker's window in place
+  (same clamps as ``hello``), shrinking credit immediately; growth is
+  granted by the worker's next ``ready``.  Ignored from a draining
+  worker.
+
+Preemptible-capacity field (same OPTIONAL-with-conservative-default
+convention — placement hint, never load-bearing for correctness):
+
+- ``hello`` and ``advertise`` may carry ``preemptible`` (bool): the
+  worker runs on capacity that may be reclaimed (``gentun-worker
+  --preempt``; a spot/preemptible VM, or an autoscaler-managed member).
+  A broker that understands it routes cheap requeue-able work there
+  first — rung-0 probes — and pins high-rung promotions and big/micro
+  genomes to stable members when both classes exist, falling back to any
+  capacity when one class is absent (``broker._dispatch`` placement).
+  Anything but the JSON literal ``true`` — absent, old worker, malformed
+  — degrades to stable, the conservative default: a stable-only fleet
+  dispatches byte-identically to a broker that predates the field.
+  ``drain`` may carry ``reason`` ("preempt"): attribution for the
+  requeue lineage events so a study can separate preemption churn from
+  operator drains; unknown or absent reasons degrade to "drain".
+
+Host-mesh field (same OPTIONAL convention — pure observability, never
+load-bearing for correctness):
+
+- ``hello`` and ``advertise`` may carry ``mesh`` {pop, data, devices}: a
+  host-level mesh worker (``--capacity auto``, DISTRIBUTED.md "Host-level
+  mesh workers") advertises the ``(pop, data)`` device-mesh factoring its
+  capacity was DERIVED from (compile bucket × pop-axis size) and the
+  local device count behind it.  The broker records it per worker
+  (``/statusz`` fleet table, the gentun_top mesh column) and exposes the
+  fleet's widest pop axis (``fleet_mesh_pop``) so master-side batch
+  sizing can align speculative fill to the mesh multiple.  Malformed
+  values degrade to "no mesh recorded" (like ``n_chips``); a per-chip
+  worker that never sends the field behaves — and is dispatched to —
+  exactly as before.
+
+Multi-home field (same OPTIONAL convention — pure observability, never
+load-bearing for correctness):
+
+- ``hello`` may carry ``homes`` (int): how many broker SHARDS this
+  worker multi-homed to (horizontal sharding — DISTRIBUTED.md
+  "Horizontal broker sharding").  Only sent when > 1, so a single-homed
+  worker's hello stays byte-identical.  The broker records it per worker
+  (``/statusz`` fleet table, ``worker_homes{worker}`` gauge) so
+  operators reading per-shard capacity sums know a 2-homed capacity-8
+  worker legitimately shows 8 on BOTH shards.  Credit stays per
+  connection exactly as before — each shard grants against the window
+  the worker advertised to IT, and the worker replenishes each batch's
+  credit at the shard that dispatched it.  Absent or malformed degrades
+  to 1, never a dropped connection.
+
+Multi-fidelity field (same OPTIONAL-with-conservative-default convention):
+
+- each ``jobs`` entry may carry ``fidelity`` {v, rung, fingerprint}: the
+  rung this job was dispatched at by a ladder-running master
+  (``AsyncEvolution(fidelity_ladder=...)``) and the
+  ``utils/fitness_store.fidelity_fingerprint`` of the shipped
+  ``additional_parameters``.  Workers that understand it cross-check the
+  fingerprint against the config they are about to train with and reply
+  with a structured ``fail`` frame on mismatch or on an unknown tag
+  version (``v != 1``) — a mislabeled fidelity must lose ONE job loudly,
+  never poison a rung with a wrong-schedule measurement.  A tagless job
+  (old master) evaluates exactly as before, and an old worker ignores
+  the field entirely — the fitness-cache keys on the master still keep
+  rungs disjoint, the tag only adds fleet-side detection.
+
+Session messages (multi-tenant search sessions, ``sessions.py`` — same
+OPTIONAL convention; every pre-session frame stays byte-identical, so old
+workers and old single-tenant masters interoperate unchanged):
+
+- ``hello`` may carry ``role: "client"``: the connection is a wire TENANT
+  rather than a worker — it submits jobs into a session and receives that
+  session's results, but never evaluates.  After ``welcome`` the broker
+  accepts from it:
+
+  - ``session_open`` {session?, weight?, max_in_flight?} → ``session_ok``
+    {session}: create a search session (or RE-ATTACH to an open one —
+    idempotent, and buffered results are flushed on re-attach).  Omitting
+    ``session`` lets the broker mint an id.
+  - ``session_detach`` {session} → ``session_ok``: stop receiving the
+    session's results; they park in a bounded broker-side queue until
+    someone re-attaches.  The session stays open.
+  - ``session_close`` {session} → ``session_ok``: no further submits; the
+    session's queued jobs are withdrawn and its fair-share slot is
+    released.  Idempotent.
+  - ``submit`` {session, jobs: [{job_id, genes, ...}, ...]}: enqueue jobs
+    into the session (client-supplied job ids).  Results come back as
+    ``results`` frames carrying ``session``, terminal failures as ``fail``
+    frames carrying ``session``.
+  - ``cancel`` {jobs: [job_id, ...]}: withdraw still-open jobs.
+  - ``session_stats`` {session?, reset_chips?} → ``session_stats``
+    {session, capacity, prefetch, mesh_pop, chips}: the session's
+    weighted fleet share and the fleet-wide sizing facts
+    (``fleet_mesh_pop``, ``chips_seen``) — the wire mirror of the
+    in-process sizing reads, added for sharded masters whose
+    engines run against remote brokers only.  ``reset_chips: true``
+    starts a fresh chips-seen observation window first.  Old clients
+    never send it; old brokers log-and-ignore it.
+
+- a wire ``submit`` whose ``job_id`` is ALREADY OPEN on this broker is
+  skipped silently: a sharded master whose submit ack died
+  with the link retries the same ids after reconnect, and re-enqueueing
+  them would double-run the jobs.  Ids already terminal DO re-run
+  (at-least-once); the client-side results table dedups by id.
+
+- a ``submit`` naming an UNKNOWN or CLOSED session is answered with a
+  structured ``error`` {code: "session", session, reason} frame — loudly,
+  never a silent drop — and bumps the ``session_rejected_total{session}``
+  counter.  In-process submitters get the same contract as an
+  ``UnknownSessionError`` raised from ``JobBroker.submit``.
+- each ``jobs`` entry dispatched from a NON-default session carries
+  ``session``: the tenant tag, echoed by session-aware workers in their
+  result entries (the broker keys on ``job_id``, so an old worker that
+  drops the field loses nothing — the tag exists for worker-side
+  telemetry attribution).  Default-session jobs carry no ``session``
+  field at all: the single-tenant wire format is byte-identical to
+  pre-session brokers.
+
+Crash-safety fields (``journal.py`` — same OPTIONAL convention;
+a broker running WITHOUT a dispatch journal emits none of them, keeping
+its wire format byte-identical to pre-journal brokers):
+
+- ``welcome`` (worker AND client role) may carry ``boot_id``: the
+  journaled broker's boot epoch, a fresh opaque token per process start.
+  Clients/workers that understand it echo it as ``boot`` on their
+  ``results``/``fail`` frames; old peers ignore it and echo nothing.
+- a restarted broker uses the echo to vet results minted under a PREVIOUS
+  epoch: a ``boot``-mismatched result is accepted iff its ``job_id`` is
+  still open in the replayed journal state (the work is real and wanted),
+  else dropped with ``epoch_stale_results_total`` — never double-counted.
+- ``session_open``/``submit`` over the wire may be refused under
+  admission control with a structured ``error`` {code: "admission",
+  session, reason: "saturated"|"rate_limited", retry_after_s} frame — the
+  429 contract: nothing was enqueued; back off ``retry_after_s`` seconds
+  and retry the same request.  ``SessionClient`` raises
+  :class:`~.sessions.AdmissionRejected` carrying both fields.
+
+Telemetry fields (``gentun_tpu_torch/telemetry``, docs/OBSERVABILITY.md) — both
+OPTIONAL and only present when tracing is enabled on the sending side;
+receivers that don't understand them ignore them, so mixed
+enabled/disabled fleets interoperate:
+
+- each ``jobs`` entry may carry ``trace`` {trace_id, span_id}: the
+  master-side span context under which the job was submitted.  The worker
+  re-attaches it so its spans join the master's trace.
+- the FIRST ``result`` frame of a worker's evaluation group may carry
+  ``spans`` [span records]: the group's captured worker-side spans
+  (eval/train/compile...), which the broker ingests into the active run
+  artifact.  It rides a result frame — not a separate message type — so
+  span reports inherit result-frame dedup: a duplicated frame cannot
+  double-ingest.
+
+Cache services are HTTP side channels, not frames: both the shared
+fitness service (``fitness_service.py``, ``--cache-url``) and the
+fleet-wide compile-artifact cache (``compile_service.py``,
+``--compile-cache-url``) run over their own stdlib-HTTP connections,
+never over this socket.  The broker protocol is therefore entirely
+unaware of them — a worker prefetches compiled executables and publishes
+fresh ones out-of-band, and nothing on this wire changes whether the
+services are up, degraded, or absent (that independence is what lets
+cache downtime never fail a search).
+
+Pings are deliberately UNANSWERED: the broker's ``last_seen`` update is
+the liveness mechanism, and replies the worker only reads between batches
+would pile up unread during a long training batch — a worker exiting
+right after its final results would then RST away the in-flight result
+frames (see ``client._graceful_close``).  Workers detect a dead broker by
+EOF/send-failure, never by pong absence.
+
+Delivery semantics (matching AMQP's, SURVEY.md §5 "Failure detection"):
+at-least-once.  A job is requeued when its worker disconnects or stops
+pinging before sending ``result``; the master deduplicates by ``job_id`` and
+keeps the first fitness, so redelivery never double-counts.
+
+Jobs travel in **batches**: a dispatch to a worker is a single ``jobs``
+frame holding everything that worker's credit allows.  This is what makes
+capacity > 1 deterministic — a capacity-8 worker receives its 8 jobs in one
+frame regardless of network latency, so the worker never has to guess (with
+a read timeout) whether more jobs are in flight.  One bounded exception: a
+batch whose encoded size would approach ``MAX_MESSAGE_BYTES`` is split at a
+soft size cap into several consecutive ``jobs`` frames, which the worker
+consumes (and trains) one frame at a time — batching degrades gracefully
+for pathologically large payloads instead of breaking the protocol.
+
+Results travel the same way: a worker's evaluation group replies with ONE
+``results`` frame per capacity window (``coalesce_results``) instead of a
+TCP frame per job, so a capacity-8 batch is 1 syscall + 1 broker wake-up
+instead of 8 — this shaves the measured small-batch RPC floor of the
+converged tail (PERF.md "Tail generations") in both the generational and
+the asynchronous mode.  Each entry inside the frame is deduplicated
+independently on the broker (at-least-once semantics are unchanged), the
+group's span report rides the frame exactly as it used to ride the first
+``result`` frame, and the single-job ``result`` frame remains accepted for
+back-compat with older workers.
+
+Wire fast path (same OPTIONAL-with-conservative-defaults convention —
+DISTRIBUTED.md "Wire fast path"):
+
+- ``hello`` may carry ``caps`` [str]: wire capabilities the worker can
+  decode beyond the v1 frame set.  The broker intersects them with its
+  own (``JobBroker(wire_caps=...)``) and echoes the GRANTED set back on
+  ``welcome`` — a capability is live only when both ends named it.  An
+  old broker ignores ``caps`` and sends a bare ``welcome``; an old
+  worker never sends ``caps`` and its ``welcome`` stays byte-identical
+  to pre-caps brokers, so mixed fleets interoperate on the v1 path with
+  zero configuration.
+- ``jobs2`` {shared: {...}, jobs: [{job_id, gk, genes, ...}, ...]}
+  (capability ``"jobs2"``): a dispatch frame that hoists the envelope
+  fields every job of the window shares — ``additional_parameters``,
+  ``fidelity``, ``trace``, ``session`` — into ONE per-frame ``shared``
+  block instead of duplicating them into every entry.  The worker
+  expands each entry as ``dict(shared)`` + per-entry overrides
+  (``expand_jobs2``), so the shared params VALUE is decoded once and
+  one object is reused across the window (evaluators treat it
+  read-only).  Each entry also carries ``gk``, the broker's
+  already-computed ``genome_key``, so the worker never re-hashes genes
+  for forensics attribution.  The broker groups a dispatch batch by
+  envelope; a heterogeneous batch degrades to one ``jobs2`` frame per
+  distinct envelope, never to an incorrect merge.
+- encode-once fragments: the master keeps a bounded
+  ``GenomeFragmentCache`` mapping ``genome_key`` → the genes' serialized
+  JSON bytes, so a genome is dumped exactly once per master lifetime and
+  every dispatch — first send, disconnect requeue, straggler speculative
+  requeue, promotion re-dispatch — reassembles its frame by joining
+  cached byte fragments (``build_job_wire``).  Assembly is byte-for-byte
+  identical to ``encode({"job_id": ..., **payload})``, which the
+  back-compat tests pin, so fault injectors and v1 workers observe
+  exactly the frames a pre-fast-path broker produced.
+
+Cross-session window packing (same OPTIONAL convention — DISTRIBUTED.md
+"Cross-session window packing"):
+
+- a ``jobs``/``jobs2`` frame may carry top-level ``packed: true``: the
+  broker sized this window as ONE evaluation batch (already
+  mesh-aligned to the receiving worker's capacity), coalescing jobs
+  from different sessions that share a compile-compatible envelope.  A
+  packing-aware worker asserts the frame never re-splits in
+  ``_chunk_jobs`` (``packed_window_resplit_total`` counts violations —
+  degrade loudly, never drop); an old worker ignores the unknown key
+  and chunks as always, which is safe because a packed window is never
+  larger than the worker's advertised capacity.  The marker is emitted
+  ONLY by a ``JobBroker(pack_windows=True)`` — a pack-off broker's
+  frames stay byte-identical to this build's predecessors.
+- a packed ``jobs2`` frame hoists only :data:`PACK_ENVELOPE_FIELDS`
+  (``additional_parameters``, ``fidelity`` — the compile-compatibility
+  envelope) into ``shared``; the per-job tenant fields (``session``,
+  ``trace``) ride each entry instead (``packed_entry2``).
+  ``expand_jobs2`` already lets per-entry keys override the envelope,
+  so expansion is lossless and per-job session attribution survives
+  the shared hoist.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+from collections import OrderedDict
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+__all__ = [
+    "encode",
+    "decode",
+    "coalesce_results",
+    "MAX_MESSAGE_BYTES",
+    "ProtocolError",
+    "AuthError",
+    "WIRE_CAPS",
+    "SHARED_ENVELOPE_FIELDS",
+    "parse_caps",
+    "GenomeFragmentCache",
+    "JobWire",
+    "build_job_wire",
+    "jobs_frame",
+    "jobs2_frame",
+    "expand_jobs2",
+    "PACK_ENVELOPE_FIELDS",
+    "pack_envelope",
+    "packed_entry2",
+    "PreencodedMessage",
+]
+
+#: Hard cap per message; genes + params are a few KB, so anything huge is a
+#: protocol violation (or an attempt to ship training data, which the design
+#: forbids — data lives with the worker).
+MAX_MESSAGE_BYTES = 4 * 1024 * 1024
+
+
+class ProtocolError(Exception):
+    """Malformed or oversized frame."""
+
+
+class AuthError(ConnectionError):
+    """The broker rejected this worker's credentials (``error: bad token``).
+
+    Unlike a network blip, auth rejection is deterministic — reconnecting
+    with the same token can never succeed — so ``GentunClient.work()``
+    treats it as TERMINAL instead of retrying forever (the reference's
+    RabbitMQ credential failure is equally loud [PUB]).  Subclasses
+    ``ConnectionError`` so pre-existing callers that catch broadly keep
+    working.
+    """
+
+
+class PreencodedMessage(dict):
+    """A message dict that carries its own wire frame, assembled from cached
+    fragments.  ``encode()`` sends ``wire`` verbatim when set, so assemblers
+    pay serialization once while fault injectors and tests still see a typed
+    dict.  The assembler owns the invariant that ``wire`` matches the dict —
+    mutate the dict after assembly and the bytes go stale.
+    """
+
+    __slots__ = ("wire",)
+
+    def __init__(self, *args: Any, **kwargs: Any) -> None:
+        super().__init__(*args, **kwargs)
+        self.wire: Optional[bytes] = None
+
+
+def encode(msg: Dict[str, Any]) -> bytes:
+    """Message dict → one newline-terminated JSON frame.
+
+    A :class:`PreencodedMessage` whose frame was already assembled (wire
+    fast path, ``coalesce_results``) returns its bytes without re-dumping;
+    plain dicts pay one attribute probe (~ns) and serialize as before.
+    """
+    wire = getattr(msg, "wire", None)
+    if wire is not None:
+        return wire
+    data = json.dumps(msg, separators=(",", ":")).encode("utf-8")
+    if len(data) > MAX_MESSAGE_BYTES:
+        raise ProtocolError(f"message of {len(data)} bytes exceeds {MAX_MESSAGE_BYTES}")
+    return data + b"\n"
+
+
+def decode(line: bytes) -> Dict[str, Any]:
+    """One frame (without trailing newline requirement) → message dict."""
+    # Strip the framing newline before the size check so a payload of
+    # exactly MAX_MESSAGE_BYTES (which encode() allows) round-trips.
+    line = line.rstrip(b"\n")
+    if len(line) > MAX_MESSAGE_BYTES:
+        raise ProtocolError(f"frame of {len(line)} bytes exceeds {MAX_MESSAGE_BYTES}")
+    try:
+        msg = json.loads(line)
+    except json.JSONDecodeError as e:
+        raise ProtocolError(f"bad JSON frame: {e}") from e
+    if not isinstance(msg, dict) or "type" not in msg:
+        raise ProtocolError(f"frame is not a typed message: {msg!r}")
+    return msg
+
+
+# --------------------------------------------------------------------------
+# Wire fast path: encode-once fragments, v1/v2 frame assembly, capability
+# negotiation.  See the module docstring ("Wire fast path") and
+# DISTRIBUTED.md for the design; tests/test_protocol.py pins the
+# byte-identity invariants.
+# --------------------------------------------------------------------------
+
+#: Capabilities this build can speak beyond the v1 frame set.  Both ends
+#: default to advertising all of them; pass ``wire_caps=()`` to
+#: ``JobBroker``/``GentunClient`` to emulate a v1 peer (ops kill switch,
+#: mixed-fleet tests).
+WIRE_CAPS: Tuple[str, ...] = ("jobs2",)
+
+#: Envelope fields a ``jobs2`` frame hoists into its ``shared`` block.  The
+#: tuple order is the hoisting order; grouping is by exact serialized value,
+#: so hoisting is always lossless.
+SHARED_ENVELOPE_FIELDS: Tuple[str, ...] = (
+    "additional_parameters", "fidelity", "trace", "session")
+
+_SHARED_SET = frozenset(SHARED_ENVELOPE_FIELDS)
+
+#: The compile-compatibility slice of the envelope — the fields whose
+#: serialized bytes must match for two jobs to share one packed device
+#: window (static config fingerprint + fidelity fingerprint; the genome
+#: size class rides alongside in the broker's pack key).  ``trace`` and
+#: ``session`` are deliberately absent: they are per-tenant attribution,
+#: not compile inputs, and stay per-entry in a packed frame.
+PACK_ENVELOPE_FIELDS: Tuple[str, ...] = ("additional_parameters", "fidelity")
+
+_PACK_SET = frozenset(PACK_ENVELOPE_FIELDS)
+
+#: Fixed framing bytes around a single-entry ``jobs`` frame — used to give
+#: submit-time oversize validation the exact byte count ``encode()`` saw.
+_JOBS_FRAME_OVERHEAD = len(b'{"type":"jobs","jobs":[]}')
+
+
+def parse_caps(msg: Dict[str, Any]) -> frozenset:
+    """The ``caps`` field of a ``hello``/``welcome`` as a frozenset of
+    strings; anything malformed degrades to "no capabilities" (the v1
+    path), never to an error — same conservative-defaults posture as
+    ``n_chips``/``mesh``."""
+    caps = msg.get("caps")
+    if not isinstance(caps, (list, tuple)):
+        return frozenset()
+    return frozenset(c for c in caps if isinstance(c, str))
+
+
+# Per-field assembly calls the serializer once per VALUE, so the fixed cost
+# of each call matters here in a way it never did for whole-frame encode():
+# a shared encoder instance skips the per-call JSONEncoder construction that
+# custom separators force on json.dumps, and plain strings (job ids, genome
+# keys, session ids) go straight to the C escaper.  Output stays
+# byte-identical to ``json.dumps(obj, separators=(",", ":"))``.
+_json_encode = json.JSONEncoder(separators=(",", ":")).encode
+_escape_str = json.encoder.encode_basestring_ascii
+
+
+def _dumps(obj: Any) -> bytes:
+    if type(obj) is str:
+        return _escape_str(obj).encode("utf-8")
+    return _json_encode(obj).encode("utf-8")
+
+
+# Payload keys come from a tiny fixed vocabulary (genes, additional_parameters,
+# fidelity, trace, session, ...), so their serialized forms are memoized —
+# per-field assembly then pays dumps() only for VALUES.
+_key_bytes_cache: Dict[str, bytes] = {}
+
+
+def _key_bytes(key: str) -> bytes:
+    b = _key_bytes_cache.get(key)
+    if b is None:
+        if len(_key_bytes_cache) > 256:  # wire vocabularies don't grow; bound anyway
+            _key_bytes_cache.clear()
+        b = _key_bytes_cache[key] = _dumps(key)
+    return b
+
+
+class GenomeFragmentCache:
+    """Bounded LRU of ``genome_key`` → the genes' serialized JSON bytes.
+
+    A genome's wire fragment is dumped exactly once per master lifetime
+    (first dispatch) and reused by every later frame assembly — requeues,
+    speculative refills, promotion re-dispatch.  Thread-safe: ``submit()``
+    builds fragments in the caller thread while the broker loop assembles
+    frames from them.  ``hits``/``misses`` are advisory totals for gates
+    and panels, not synchronization.
+    """
+
+    def __init__(self, max_entries: int = 8192) -> None:
+        self._max = max(1, int(max_entries))
+        self._lock = threading.Lock()
+        self._frags: "OrderedDict[str, bytes]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def fragment(self, key: str, genes: Any) -> bytes:
+        with self._lock:
+            frag = self._frags.get(key)
+            if frag is not None:
+                self._frags.move_to_end(key)
+                self.hits += 1
+                return frag
+        frag = _dumps(genes)  # dump outside the lock; losing a race is harmless
+        with self._lock:
+            self.misses += 1
+            self._frags[key] = frag
+            while len(self._frags) > self._max:
+                self._frags.popitem(last=False)
+        return frag
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._frags)
+
+    @property
+    def max_entries(self) -> int:
+        return self._max
+
+
+class JobWire:
+    """A job's cached wire forms, built once at enqueue and reused for every
+    (re-)dispatch:
+
+    - ``v1``: the complete v1 ``jobs`` entry bytes — byte-identical to
+      ``json.dumps({"job_id": job_id, **payload}, separators=(",", ":"))``.
+    - ``entry2``: the ``jobs2`` entry bytes (job_id + gk + non-envelope
+      fields; the envelope lives in the frame's ``shared`` block).
+    - ``env``: the envelope as a hashable ``((field, value_bytes), ...)``
+      tuple — the grouping key AND the ``shared``-block fragments.
+    - ``gk``: the genome key, carried so enqueue bookkeeping (quarantine,
+      lineage, dedup) reuses the hash computed at build time.
+    """
+
+    __slots__ = ("gk", "v1", "entry2", "env")
+
+    def __init__(self, gk: str, v1: bytes, entry2: bytes,
+                 env: Tuple[Tuple[str, bytes], ...]) -> None:
+        self.gk = gk
+        self.v1 = v1
+        self.entry2 = entry2
+        self.env = env
+
+    def with_session(self, session: str) -> "JobWire":
+        """This wire record with the tenant tag appended — mirrors the
+        broker adding ``payload["session"]`` as the LAST payload key, so
+        ``v1`` stays byte-identical to the tagged dict's encoding.  The tag
+        joins the envelope, keeping ``jobs2`` grouping session-disjoint."""
+        sid_bytes = _dumps(session)
+        v1 = b"".join((self.v1[:-1], b',"session":', sid_bytes, b"}"))
+        return JobWire(self.gk, v1, self.entry2,
+                       self.env + (("session", sid_bytes),))
+
+
+def build_job_wire(job_id: str, payload: Dict[str, Any], gk: str,
+                   cache: GenomeFragmentCache,
+                   memo: Optional[Dict[int, Tuple[Any, bytes]]] = None) -> JobWire:
+    """Assemble a job's cached wire forms from fragments (one dumps() per
+    non-genes field; genes come from ``cache``).  Raises
+    :class:`ProtocolError` for a payload no single-entry frame could carry,
+    with the same byte accounting ``encode()`` would have reported — this
+    doubles as the submit-time validation pass.
+
+    ``memo`` (optional) dedups value serialization WITHIN one submit batch:
+    the master ships one shared params/fidelity object across a population's
+    payloads, so the batch pays one dumps() for it, not one per job.  Keyed
+    by ``id()`` with an identity check, and the memo holds a reference to
+    each value, so entries can't alias a recycled id.  Pass a dict scoped to
+    the batch loop — never a long-lived one (values may mutate between
+    submits).
+    """
+    fields: List[Tuple[str, bytes]] = []
+    for k, v in payload.items():
+        if k == "job_id":
+            continue  # entry position 0 below; {"job_id": ..., **payload} keeps one copy
+        if k == "genes":
+            b = cache.fragment(gk, v)
+        elif memo is not None:
+            hit = memo.get(id(v))
+            if hit is not None and hit[0] is v:
+                b = hit[1]
+            else:
+                b = _dumps(v)
+                memo[id(v)] = (v, b)
+        else:
+            b = _dumps(v)
+        fields.append((k, b))
+    jid_bytes = _dumps(payload.get("job_id", job_id))
+
+    parts = [b'{"job_id":', jid_bytes]
+    for k, b in fields:
+        parts += (b",", _key_bytes(k), b":", b)
+    parts.append(b"}")
+    v1 = b"".join(parts)
+    total = _JOBS_FRAME_OVERHEAD + len(v1)
+    if total > MAX_MESSAGE_BYTES:
+        raise ProtocolError(f"message of {total} bytes exceeds {MAX_MESSAGE_BYTES}")
+
+    parts2 = [b'{"job_id":', jid_bytes, b',"gk":', _dumps(gk)]
+    env: List[Tuple[str, bytes]] = []
+    for k, b in fields:
+        if k in _SHARED_SET:
+            env.append((k, b))
+        else:
+            parts2 += (b",", _key_bytes(k), b":", b)
+    parts2.append(b"}")
+    return JobWire(gk, v1, b"".join(parts2), tuple(env))
+
+
+def _finish_frame(body: bytes) -> bytes:
+    if len(body) > MAX_MESSAGE_BYTES:
+        raise ProtocolError(f"message of {len(body)} bytes exceeds {MAX_MESSAGE_BYTES}")
+    return body + b"\n"
+
+
+def jobs_frame(entries: Iterable[bytes], packed: bool = False) -> bytes:
+    """Join v1 entry bytes into one ``jobs`` frame — byte-identical to
+    ``encode({"type": "jobs", "jobs": [...]})`` over the decoded entries.
+    ``packed=True`` adds the ``"packed":true`` marker (cross-session
+    window packing); the default path's bytes are untouched, which is
+    what makes a pack-off broker wire-byte-identical by construction."""
+    head = (b'{"type":"jobs","packed":true,"jobs":[' if packed
+            else b'{"type":"jobs","jobs":[')
+    return _finish_frame(head + b",".join(entries) + b"]}")
+
+
+def jobs2_frame(env: Iterable[Tuple[str, bytes]],
+                entries: Iterable[bytes], packed: bool = False) -> bytes:
+    """Join a shared envelope + ``jobs2`` entry bytes into one frame.
+    ``packed=True`` marks a broker-sized cross-session window (see
+    :func:`jobs_frame`); the envelope should then be the
+    :func:`pack_envelope` slice with per-job fields in the entries."""
+    shared = b",".join(_key_bytes(k) + b":" + v for k, v in env)
+    head = (b'{"type":"jobs2","packed":true,"shared":{' if packed
+            else b'{"type":"jobs2","shared":{')
+    return _finish_frame(head + shared +
+                         b'},"jobs":[' + b",".join(entries) + b"]}")
+
+
+def pack_envelope(env: Iterable[Tuple[str, bytes]]) -> Tuple[Tuple[str, bytes], ...]:
+    """The compile-compatibility slice of a :class:`JobWire` envelope:
+    only :data:`PACK_ENVELOPE_FIELDS`, in envelope order.  Equality of
+    this tuple (serialized bytes, not parsed values) is the broker's
+    pack-compatibility test — the same exact-value grouping rule
+    ``jobs2`` hoisting already relies on."""
+    return tuple((k, v) for k, v in env if k in _PACK_SET)
+
+
+def packed_entry2(jw: "JobWire") -> bytes:
+    """A ``jobs2`` entry for a PACKED (cross-session) window: the cached
+    ``entry2`` plus the per-tenant envelope fields (``session``,
+    ``trace``) a packed frame cannot hoist into ``shared``.
+    ``expand_jobs2`` lets per-entry keys override the envelope, so the
+    worker reconstructs exactly the per-job dicts an unpacked dispatch
+    would have produced — session attribution survives the hoist."""
+    extra = b"".join(b"," + _key_bytes(k) + b":" + v
+                     for k, v in jw.env if k not in _PACK_SET)
+    if not extra:
+        return jw.entry2
+    return jw.entry2[:-1] + extra + b"}"
+
+
+def expand_jobs2(msg: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """``jobs2`` frame → the v1-shaped job dicts a ``jobs`` frame would have
+    carried (plus ``gk``).  The shared envelope is decoded once by the JSON
+    layer; every expanded job references the SAME shared value objects
+    (params dict, fidelity, trace), so a capacity window holds one params
+    object, not N copies.  Per-entry keys override the envelope."""
+    shared = msg.get("shared") or {}
+    jobs: List[Dict[str, Any]] = []
+    for entry in msg.get("jobs") or ():
+        job = dict(shared)
+        job.update(entry)
+        jobs.append(job)
+    return jobs
+
+
+def coalesce_results(
+    entries: List[Dict[str, Any]],
+    spans: Optional[List[Dict[str, Any]]] = None,
+    soft_cap: Optional[int] = None,
+) -> List[Dict[str, Any]]:
+    """Pack per-job result entries into the fewest ``results`` frames.
+
+    The worker-side mirror of the broker's ``jobs`` batching: one frame per
+    capacity window, split at a soft size cap (default
+    ``MAX_MESSAGE_BYTES // 2``) so a pathological batch degrades into
+    several valid frames instead of one oversized one.  ``spans`` (the
+    group's captured telemetry report) is attached to the FIRST frame only,
+    preserving the ride-the-first-result dedup contract.  Returns message
+    dicts, not bytes — the client's send path owns encoding (and fault
+    injection sees typed messages).  Each entry is JSON-dumped exactly once:
+    the bytes that size the split also assemble the frame, which the
+    returned :class:`PreencodedMessage` carries for ``encode()`` to reuse.
+    """
+    cap = int(soft_cap) if soft_cap else MAX_MESSAGE_BYTES // 2
+    batches: List[Tuple[List[Dict[str, Any]], List[bytes]]] = []
+    batch: List[Dict[str, Any]] = []
+    batch_encs: List[bytes] = []
+    batch_bytes = 0
+    for entry in entries:
+        enc = _dumps(entry)
+        if batch and batch_bytes + len(enc) > cap:
+            batches.append((batch, batch_encs))
+            batch, batch_encs, batch_bytes = [], [], 0
+        batch.append(entry)
+        batch_encs.append(enc)
+        batch_bytes += len(enc)
+    if batch:
+        batches.append((batch, batch_encs))
+    frames: List[Dict[str, Any]] = []
+    for i, (group, encs) in enumerate(batches):
+        msg = PreencodedMessage({"type": "results", "results": group})
+        body = b'{"type":"results","results":[' + b",".join(encs) + b"]"
+        if i == 0 and spans:
+            msg["spans"] = spans
+            body += b',"spans":' + _dumps(spans)
+        body += b"}"
+        if len(body) <= MAX_MESSAGE_BYTES:
+            msg.wire = body + b"\n"
+        # else: wire stays None and encode() raises its usual oversize
+        # ProtocolError when the frame is actually sent — unchanged contract.
+        frames.append(msg)
+    return frames

@@ -1,0 +1,918 @@
+"""Multi-tenant search sessions: one broker, many concurrent searches.
+
+PRs 1-7 built every plane — chaos, telemetry, async engine, pipelined
+dispatch, live ops, ASHA, elastic fleet + shared fitness cache — under the
+assumption that exactly ONE search owns the broker.  This module removes
+that assumption, the system shape ASHA (Li et al., MLSys 2020) was built
+for: many concurrent tuning jobs sharing one elastic worker pool (Real et
+al., ICML 2017 likewise ran many evolution experiments against one fleet).
+
+Three pieces, all consumed by ``broker.JobBroker``:
+
+- :class:`SessionRegistry` / :class:`SearchSession` — the tenant table.
+  Old single-tenant masters never touch it: their jobs ride an IMPLICIT
+  default session (:data:`DEFAULT_SESSION`) that is created lazily on
+  first untagged submit, keeping every pre-session code path — and wire
+  frame — byte-identical.  Tenants attach in-process via
+  ``JobBroker.open_session`` / ``DistributedPopulation(session=...)`` or
+  over the wire via the OPTIONAL client-role messages (protocol.py
+  "Session messages").
+- :class:`FairShareScheduler` — a weighted deficit-round-robin queue that
+  replaces the broker's single FIFO deque.  Unit job cost (every job is
+  one evaluation slot), per-session weights (a weight-2 tenant gets 2× the
+  dispatch share of a weight-1 tenant while both are backlogged), and
+  work-conservation (an idle tenant's share flows to the backlogged ones
+  instead of going unused).  With a single active session it degenerates
+  to exactly the old FIFO order.
+- :class:`SessionClient` — a blocking TCP client for the wire session
+  messages, used by out-of-process tenants (and the session tests): open
+  a session, submit tagged jobs, receive results/failures for your own
+  session only.
+
+Poison-genome isolation lives in the registry: a genome whose evaluation
+terminally fails ``quarantine_after`` times within one session is
+quarantined FOR THAT SESSION — later submits of it fail instantly without
+touching a worker — while other sessions keep their own independent
+verdicts (a genome that crashes tenant A's species may be perfectly fine
+for tenant B's).
+"""
+
+from __future__ import annotations
+
+import socket
+import threading
+import time
+import uuid
+from collections import deque
+from typing import Any, Callable, Deque, Dict, List, Optional, Set, Tuple
+
+from ..telemetry import lineage as _lineage
+from ..telemetry import spans as _tele
+from ..telemetry.registry import get_registry as _get_registry
+from .protocol import MAX_MESSAGE_BYTES, AuthError, decode, encode
+
+__all__ = [
+    "DEFAULT_SESSION",
+    "SearchSession",
+    "SessionRegistry",
+    "FairShareScheduler",
+    "SessionClient",
+    "UnknownSessionError",
+    "AdmissionRejected",
+    "genome_key",
+]
+
+#: The implicit single-tenant session.  Jobs submitted without a session
+#: ride it, its frames carry NO session field (byte-identical to the
+#: pre-session wire format), and it is created lazily — so a broker that
+#: only ever serves tenant sessions never counts it as a capacity sharer.
+DEFAULT_SESSION = "default"
+
+
+class UnknownSessionError(ValueError):
+    """A submit named a session that was never opened, or one already
+    closed.  Loud by design: silently dropping a
+    mis-addressed job would strand its ``gather``/``wait_any`` forever."""
+
+
+class AdmissionRejected(RuntimeError):
+    """The broker refused a ``session_open``/``submit`` under admission
+    control: the fleet is saturated or this tenant exceeded
+    its token-bucket rate.  The 429-style contract: back off for
+    :attr:`retry_after_s` seconds, then retry the SAME request — nothing
+    was enqueued, so the retry is side-effect-free."""
+
+    def __init__(self, reason: str, retry_after_s: float):
+        super().__init__(f"admission rejected ({reason}); "
+                         f"retry after {retry_after_s:.3g}s")
+        self.reason = reason
+        self.retry_after_s = retry_after_s
+
+
+# Content address for a genome — canonical implementation now lives with
+# the forensics plane (the lineage ledger keys on the same identity the
+# quarantine table always used); re-exported here for every existing
+# import site.
+genome_key = _lineage.genome_key
+
+
+class SearchSession:
+    """One tenant's state: identity, fair-share weight, quota, books.
+
+    Mutated from the broker loop thread (counters, quarantine) and read
+    as snapshots from master/HTTP threads — the same discipline as
+    ``_Worker``.  ``owner`` is the asyncio writer of the wire client
+    currently attached (None for in-process tenants and detached wire
+    tenants); results for a remote session are forwarded to it, or parked
+    in ``undelivered`` (bounded) until re-attach.
+    """
+
+    __slots__ = ("session_id", "weight", "max_in_flight", "remote", "closed",
+                 "created_at", "submitted", "completed", "failed", "rejected",
+                 "requeued", "poison_counts", "quarantine", "owner",
+                 "undelivered", "tag")
+
+    def __init__(self, session_id: str, weight: float = 1.0,
+                 max_in_flight: Optional[int] = None, remote: bool = False,
+                 tag: Optional[str] = None):
+        self.session_id = session_id
+        self.weight = max(1e-6, float(weight))
+        self.max_in_flight = None if max_in_flight is None else max(1, int(max_in_flight))
+        self.remote = remote
+        #: Free-form classification ("canary" ⇒ the broker keeps this
+        #: session out of tenant-facing SLI series).  Not journaled: a
+        #: tagged session is transient by design and reopens fresh after
+        #: a broker restart.
+        self.tag = str(tag) if tag else None
+        self.closed = False
+        self.created_at = time.monotonic()
+        self.submitted = 0
+        self.completed = 0
+        self.failed = 0
+        self.rejected = 0
+        self.requeued = 0
+        #: genome_key -> terminal-failure count within THIS session.
+        self.poison_counts: Dict[str, int] = {}
+        #: genome keys this session refuses to dispatch again.
+        self.quarantine: Set[str] = set()
+        self.owner = None
+        self.undelivered: Deque[Dict[str, Any]] = deque(maxlen=10_000)
+
+    def record_terminal_failure(self, gk: Optional[str],
+                                quarantine_after: int,
+                                force_quarantine: bool = False) -> bool:
+        """Book one terminal evaluation failure against this session.
+
+        Bumps ``failed`` and the genome's poison count; at
+        ``quarantine_after`` failures (or immediately under
+        ``force_quarantine`` — the crash-isolation path) the genome is
+        quarantined for THIS session, surfacing as the
+        ``session_quarantined_total`` counter, a ``genome_quarantined``
+        telemetry event, and a ``quarantined`` lineage ledger entry.
+        Returns whether the genome was NEWLY quarantined.  Called from the
+        broker loop thread (the same single-writer discipline as the rest
+        of the books).
+        """
+        self.failed += 1
+        if gk is None:
+            return False
+        n = self.poison_counts.get(gk, 0) + 1
+        self.poison_counts[gk] = n
+        hit = force_quarantine or n >= quarantine_after
+        if not hit or gk in self.quarantine:
+            return False
+        self.quarantine.add(gk)
+        _get_registry().counter("session_quarantined_total",
+                                session=self.session_id).inc()
+        _tele.record_event("genome_quarantined", {
+            "session": self.session_id, "genome": gk, "terminal_failures": n,
+            "forced_by_crash": bool(force_quarantine),
+        })
+        _lineage.record("quarantined", gk, session=self.session_id,
+                        terminal_failures=n,
+                        forced_by_crash=bool(force_quarantine))
+        return True
+
+    def snapshot(self, in_flight: int = 0, queued: int = 0) -> Dict[str, Any]:
+        snap = {
+            "session": self.session_id,
+            "weight": self.weight,
+            "max_in_flight": self.max_in_flight,
+            "remote": self.remote,
+            "closed": self.closed,
+            "submitted": self.submitted,
+            "completed": self.completed,
+            "failed": self.failed,
+            "rejected": self.rejected,
+            "requeued": self.requeued,
+            "quarantined": len(self.quarantine),
+            "in_flight": in_flight,
+            "queued": queued,
+        }
+        if self.tag is not None:
+            snap["tag"] = self.tag
+        return snap
+
+
+class SessionRegistry:
+    """The tenant table.  All methods are thread-safe (one lock around a
+    dict); the broker loop holds no session references across awaits, so
+    the lock is never contended for long."""
+
+    def __init__(self, quarantine_after: int = 3):
+        self._lock = threading.Lock()
+        self._sessions: Dict[str, SearchSession] = {}
+        self.quarantine_after = max(1, int(quarantine_after))
+
+    def open(self, session_id: Optional[str] = None, weight: float = 1.0,
+             max_in_flight: Optional[int] = None,
+             remote: bool = False, tag: Optional[str] = None) -> SearchSession:
+        """Create a session, or ATTACH to an existing open one (idempotent
+        — re-opening updates weight/quota in place, so a reconnecting
+        tenant re-asserts its priority).  Re-opening a CLOSED id raises:
+        its quarantine verdicts and books are gone, and silently recycling
+        the name would mis-attribute them."""
+        sid = str(session_id) if session_id else uuid.uuid4().hex[:12]
+        with self._lock:
+            sess = self._sessions.get(sid)
+            if sess is not None:
+                if sess.closed:
+                    raise UnknownSessionError(f"session {sid!r} is closed")
+                sess.weight = max(1e-6, float(weight))
+                sess.max_in_flight = (None if max_in_flight is None
+                                      else max(1, int(max_in_flight)))
+                if tag is not None:
+                    sess.tag = str(tag)
+                return sess
+            sess = SearchSession(sid, weight=weight,
+                                 max_in_flight=max_in_flight, remote=remote,
+                                 tag=tag)
+            self._sessions[sid] = sess
+            return sess
+
+    def ensure_default(self) -> SearchSession:
+        """The implicit session, created on first untagged submit only —
+        so a broker serving explicit tenants never counts "default" as a
+        capacity sharer."""
+        with self._lock:
+            sess = self._sessions.get(DEFAULT_SESSION)
+            if sess is None:
+                sess = SearchSession(DEFAULT_SESSION)
+                self._sessions[DEFAULT_SESSION] = sess
+            return sess
+
+    def peek(self, session_id: str) -> Optional[SearchSession]:
+        with self._lock:
+            return self._sessions.get(session_id)
+
+    def close(self, session_id: str) -> Optional[SearchSession]:
+        """Mark closed (no new submits; excluded from capacity shares).
+        The broker cancels the session's open jobs separately."""
+        with self._lock:
+            sess = self._sessions.get(session_id)
+            if sess is not None:
+                sess.closed = True
+                sess.owner = None
+            return sess
+
+    def weight(self, session_id: str) -> float:
+        with self._lock:
+            sess = self._sessions.get(session_id)
+            return sess.weight if sess is not None else 1.0
+
+    def list(self) -> List[SearchSession]:
+        with self._lock:
+            return list(self._sessions.values())
+
+    def open_sessions(self) -> List[SearchSession]:
+        with self._lock:
+            return [s for s in self._sessions.values() if not s.closed]
+
+
+class FairShareScheduler:
+    """Weighted deficit round-robin over per-session FIFO queues.
+
+    Unit job cost: each dispatch slot costs one deficit credit.  When no
+    backlogged+eligible session holds a full credit, every candidate is
+    replenished by ``weight / min(candidate weights)`` — so the lightest
+    candidate gains exactly 1 per round and a weight-2 session gains 2,
+    yielding 2:1 dispatch shares while both stay backlogged.  A session
+    whose queue empties forfeits its deficit (work conservation: you
+    cannot bank priority while idle), and with ONE active session the
+    scheduler is exactly the old single FIFO deque.
+
+    Not thread-safe by itself — owned by the broker loop thread, exactly
+    like the deque it replaces.  ``depth``/``session_depth``/``queued``
+    are len()/membership snapshot reads, safe from any thread.
+    """
+
+    def __init__(self, weight_of: Callable[[str], float]):
+        self._weight_of = weight_of
+        self._queues: Dict[str, Deque[str]] = {}
+        self._order: Deque[str] = deque()  # rotation over backlogged sessions
+        self._deficit: Dict[str, float] = {}
+        self._session_of: Dict[str, str] = {}  # job_id -> session
+
+    def push(self, session_id: str, job_id: str) -> None:
+        q = self._queues.get(session_id)
+        if q is None:
+            q = self._queues[session_id] = deque()
+        if not q:
+            self._order.append(session_id)
+            self._deficit.setdefault(session_id, 0.0)
+        q.append(job_id)
+        self._session_of[job_id] = session_id
+
+    def _drop_session(self, sid: str) -> None:
+        self._queues.pop(sid, None)
+        self._deficit.pop(sid, None)
+        try:
+            self._order.remove(sid)
+        except ValueError:
+            pass
+
+    def pop_next(
+        self,
+        eligible: Callable[[str], bool],
+        valid: Callable[[str], bool],
+        placeable: Optional[Callable[[str], bool]] = None,
+    ) -> Optional[Tuple[str, str]]:
+        """The next ``(session, job_id)`` to dispatch, or None when every
+        backlogged session is ineligible (quota) or nothing is queued.
+
+        ``valid`` filters dead jobs (cancelled while queued): invalid ids
+        are discarded WITHOUT charging the session's deficit — a cancelled
+        job must not cost its tenant a dispatch turn.
+
+        ``placeable`` (optional) is the placement-aware dispatch filter
+        (broker ``_dispatch``): a job whose head-of-queue id fails it is
+        NOT popped — it stays queued, exactly where it was, and the
+        session sits this call out (no deficit charge, no rotation); the
+        pop moves on to other sessions.  Head-of-line, not scan-the-queue,
+        deliberately: intra-session dispatch order stays strictly FIFO,
+        which is what keeps requeue/dedup reasoning simple, and the cost
+        of a blocked head is bounded — the next mixed-fleet dispatch pass
+        offers the head to the other placement class.  ``placeable=None``
+        is byte-for-byte the pre-placement behavior.
+        """
+        blocked: Set[str] = set()
+        while True:
+            candidates = [sid for sid in self._order
+                          if sid not in blocked
+                          and self._queues.get(sid) and eligible(sid)]
+            if not candidates:
+                return None
+            chosen = next((sid for sid in candidates
+                           if self._deficit.get(sid, 0.0) >= 1.0), None)
+            if chosen is None:
+                # Replenish one quantum, normalized so the lightest
+                # candidate gains exactly 1 — guarantees progress without
+                # letting a heavy session burst more than its ratio.
+                min_w = min(max(1e-6, self._weight_of(sid)) for sid in candidates)
+                for sid in candidates:
+                    self._deficit[sid] = (self._deficit.get(sid, 0.0)
+                                          + max(1e-6, self._weight_of(sid)) / min_w)
+                continue
+            q = self._queues[chosen]
+            while q:
+                # Peek-then-pop: a valid-but-unplaceable head must stay
+                # queued (it is NOT cancelled, just wrong for this worker),
+                # where invalid heads are popped and discarded exactly as
+                # before — peek+pop is equivalent to pop for those paths.
+                job_id = q[0]
+                if not valid(job_id):
+                    q.popleft()
+                    self._session_of.pop(job_id, None)
+                    continue  # cancelled while queued: free, no deficit cost
+                if placeable is not None and not placeable(job_id):
+                    blocked.add(chosen)
+                    break  # head pinned elsewhere: session waits, queue intact
+                q.popleft()
+                self._session_of.pop(job_id, None)
+                self._deficit[chosen] -= 1.0
+                # Rotate the served session to the back so equal-weight
+                # tenants interleave instead of draining one at a time.
+                try:
+                    self._order.remove(chosen)
+                except ValueError:  # pragma: no cover - defensive
+                    pass
+                if q:
+                    self._order.append(chosen)
+                else:
+                    self._drop_session(chosen)
+                return chosen, job_id
+            if chosen in blocked:
+                continue
+            # Queue emptied without a valid job: forfeit deficit, retry.
+            self._drop_session(chosen)
+
+    def remove(self, job_ids: Set[str]) -> None:
+        """Withdraw queued jobs (cancel path).  Eager rebuild of only the
+        affected sessions' queues — queues are one generation deep."""
+        affected: Set[str] = set()
+        for job_id in job_ids:
+            sid = self._session_of.pop(job_id, None)
+            if sid is not None:
+                affected.add(sid)
+        for sid in affected:
+            q = self._queues.get(sid)
+            if q is None:
+                continue
+            kept = deque(j for j in q if j not in job_ids)
+            if kept:
+                self._queues[sid] = kept
+            else:
+                self._drop_session(sid)
+
+    def clear_session(self, session_id: str) -> List[str]:
+        """Drop every queued job of one session (close path); returns the
+        withdrawn job ids."""
+        q = self._queues.get(session_id)
+        ids = list(q) if q else []
+        for job_id in ids:
+            self._session_of.pop(job_id, None)
+        self._drop_session(session_id)
+        return ids
+
+    def queued(self, job_id: str) -> bool:
+        return job_id in self._session_of
+
+    def depth(self) -> int:
+        return len(self._session_of)
+
+    def session_depth(self, session_id: str) -> int:
+        q = self._queues.get(session_id)
+        return len(q) if q else 0
+
+
+class SessionClient:
+    """Blocking TCP client for the wire session messages (protocol.py
+    "Session messages"): an out-of-process tenant's handle on a shared
+    broker.
+
+    One socket, one background reader thread collecting ``results`` /
+    ``fail`` / ``error`` frames into a condition-guarded table —
+    :meth:`wait_any` mirrors ``JobBroker.wait_any`` semantics so tenant
+    code reads the same whichever side of the wire it runs on.
+
+    With ``reconnect=True`` a dropped connection — a broker
+    crash/restart, a cut link — is not fatal: the reader thread redials
+    under the same capped decorrelated backoff the worker client uses,
+    re-handshakes, and re-opens every session this client had open
+    (``session_open`` with an existing id is the broker's idempotent
+    re-attach, which also flushes any results that parked broker-side
+    during the gap).  Only jobs submitted DURING the outage are lost to
+    the caller (``submit`` raises), matching at-least-once semantics.
+
+    With ``broker_urls=[...]`` (horizontal sharding) the client
+    becomes a ROUTER over N broker shards: each session is homed on
+    ``ShardRing.home(session_id)`` and every call for that session goes to
+    one lazily-dialed child ``SessionClient`` per shard.  A one-element
+    ``broker_urls`` collapses to the plain single-socket path — wire
+    byte-identical to passing ``host``/``port`` directly (asserted by
+    ``scripts/shard_study.py``).
+    """
+
+    def __init__(self, host: Optional[str] = None, port: int = 0,
+                 token: Optional[str] = None,
+                 timeout: float = 10.0, reconnect: bool = False,
+                 reconnect_window: float = 60.0,
+                 reconnect_max_delay: float = 5.0,
+                 broker_urls: Optional[list] = None):
+        if broker_urls:
+            from .shard import ShardRing, ShardRouter, parse_broker_urls, shard_id
+
+            if host is not None:
+                raise ValueError("pass host/port OR broker_urls, not both")
+            addrs = parse_broker_urls(broker_urls)
+            if len(addrs) == 1:
+                # Single-URL deployment: fall through to the exact
+                # host/port path below — no ring, no router, no behavior
+                # or wire-byte difference from today.
+                host, port = addrs[0]
+            else:
+                self.host, self.port, self.token = None, 0, token
+                self._timeout = float(timeout)
+                self._reconnect = bool(reconnect)
+                self._reconnect_window = float(reconnect_window)
+                self._reconnect_max_delay = float(reconnect_max_delay)
+                self._by_shard = {shard_id(a): a for a in addrs}
+                self._ring = ShardRing(list(self._by_shard))
+                self._router = ShardRouter(self._ring)
+                self._children: Dict[str, "SessionClient"] = {}
+                self._child_lock = threading.Lock()
+                #: session -> home shard label (router placements).
+                self._session_home: Dict[str, str] = {}
+                #: job -> home shard label, for wait_any/cancel routing.
+                self._job_home: Dict[str, str] = {}
+                self._user_closed = False
+                return
+        elif host is None:
+            raise TypeError("SessionClient needs host/port or broker_urls")
+        self._ring = None  # single-broker mode marker
+        self.host, self.port, self.token = host, int(port), token
+        self._timeout = float(timeout)
+        self._reconnect = bool(reconnect)
+        self._reconnect_window = float(reconnect_window)
+        self._reconnect_max_delay = float(reconnect_max_delay)
+        self._sock = socket.create_connection((host, int(port)), timeout=timeout)
+        self._sock.settimeout(None)
+        self._rfile = self._sock.makefile("rb")
+        self._wlock = threading.Lock()
+        self._cond = threading.Condition()
+        self._results: Dict[str, float] = {}
+        self._failures: Dict[str, str] = {}
+        self._errors: Deque[Dict[str, Any]] = deque(maxlen=100)
+        #: monotonically counts error frames ever parked — lets a reply
+        #: wait ignore stale errors from earlier (async) submits.
+        self._error_seq = 0
+        self._replies: Deque[Dict[str, Any]] = deque()
+        self._closed = False
+        self._user_closed = False
+        #: sessions this client opened (id -> (weight, max_in_flight, tag))
+        #: — the re-attach worklist after a broker restart.
+        self._sessions: Dict[str, Tuple[float, Optional[int], Optional[str]]] = {}
+        self._send({"type": "hello", "role": "client", "token": token})
+        reply = self._recv_direct()
+        if reply.get("type") != "welcome":
+            if reply.get("type") == "error" and reply.get("code") == "auth":
+                raise AuthError(f"broker rejected client: {reply.get('reason')}")
+            raise ConnectionError(f"broker rejected client: {reply}")
+        #: broker boot epoch (OPTIONAL on welcome; journaled brokers only).
+        self._boot_id: Optional[str] = reply.get("boot_id")
+        self._reader = threading.Thread(target=self._read_loop,
+                                        name="gentun-session-client", daemon=True)
+        self._reader.start()
+
+    # -- plumbing ----------------------------------------------------------
+
+    def _send(self, msg: Dict[str, Any]) -> None:
+        with self._wlock:
+            self._sock.sendall(encode(msg))
+
+    def _recv_direct(self) -> Dict[str, Any]:
+        line = self._rfile.readline(MAX_MESSAGE_BYTES + 2)
+        if not line:
+            raise ConnectionError("broker closed connection")
+        return decode(line)
+
+    def _park(self, msg: Dict[str, Any]) -> None:
+        """File one inbound frame into the cond-guarded tables.  Caller
+        holds ``self._cond``."""
+        mtype = msg.get("type")
+        if mtype == "results":
+            for entry in msg.get("results", ()):
+                try:
+                    self._results[str(entry["job_id"])] = float(entry["fitness"])
+                except (KeyError, TypeError, ValueError):
+                    continue
+        elif mtype == "fail":
+            self._failures[str(msg.get("job_id"))] = str(msg.get("reason", "unknown"))
+        elif mtype == "error":
+            self._errors.append(msg)
+            self._error_seq += 1
+        else:  # session_ok and friends
+            self._replies.append(msg)
+
+    def _read_loop(self) -> None:
+        while True:
+            try:
+                while True:
+                    msg = self._recv_direct()
+                    with self._cond:
+                        self._park(msg)
+                        self._cond.notify_all()
+            except (ConnectionError, OSError, ValueError):
+                pass
+            if self._user_closed or not self._reconnect or not self._reattach():
+                with self._cond:
+                    self._closed = True
+                    self._cond.notify_all()
+                return
+
+    def _reattach(self) -> bool:
+        """Redial + re-handshake + re-open tracked sessions after the
+        connection dropped.  Runs ON the reader thread (no concurrent
+        reader exists), so the handshake reads frames directly; any
+        ``results`` flushed from broker-side parking while we wait for
+        our ``session_ok`` acks are filed into the tables, not dropped.
+        True ⇔ the client is live again."""
+        from .client import _ReconnectBackoff
+
+        backoff = _ReconnectBackoff(base=0.05,
+                                    cap=self._reconnect_max_delay,
+                                    seed=f"{self.host}:{self.port}:client")
+        deadline = time.monotonic() + self._reconnect_window
+        while not self._user_closed and time.monotonic() < deadline:
+            try:
+                sock = socket.create_connection((self.host, self.port),
+                                                timeout=self._timeout)
+                sock.settimeout(self._timeout)
+                rfile = sock.makefile("rb")
+                try:
+                    sock.sendall(encode({"type": "hello", "role": "client",
+                                         "token": self.token}))
+                    reply = decode(rfile.readline(MAX_MESSAGE_BYTES + 2)
+                                   or b'{"type":"error"}')
+                    if reply.get("type") != "welcome":
+                        if (reply.get("type") == "error"
+                                and reply.get("code") == "admission"):
+                            # Saturated broker: honor the 429 contract.
+                            time.sleep(min(
+                                float(reply.get("retry_after_s") or 1.0),
+                                max(0.0, deadline - time.monotonic())))
+                            continue
+                        return False  # auth/protocol rejection — permanent
+                    for sid, (weight, mif, tag) in list(self._sessions.items()):
+                        msg: Dict[str, Any] = {"type": "session_open",
+                                               "session": sid,
+                                               "weight": float(weight)}
+                        if mif is not None:
+                            msg["max_in_flight"] = int(mif)
+                        if tag is not None:
+                            msg["tag"] = str(tag)
+                        sock.sendall(encode(msg))
+                        while True:  # drain until THIS re-attach acks
+                            m = decode(rfile.readline(MAX_MESSAGE_BYTES + 2)
+                                       or b"")
+                            if m.get("type") == "session_ok":
+                                break
+                            if (m.get("type") == "error"
+                                    and m.get("code") == "session"
+                                    and m.get("session") == sid):
+                                # The id is closed server-side (our
+                                # session_close ack died with the link):
+                                # nothing to re-open, stop tracking it.
+                                self._sessions.pop(sid, None)
+                                break
+                            with self._cond:
+                                self._park(m)
+                                self._cond.notify_all()
+                except Exception:
+                    try:
+                        sock.close()
+                    except OSError:
+                        pass
+                    raise
+                sock.settimeout(None)
+                with self._wlock:
+                    old = self._sock
+                    self._sock, self._rfile = sock, rfile
+                try:
+                    old.close()
+                except OSError:
+                    pass
+                self._boot_id = reply.get("boot_id")
+                with self._cond:
+                    self._cond.notify_all()
+                return True
+            except (ConnectionError, OSError, ValueError):
+                time.sleep(min(backoff.next_delay(),
+                               max(0.0, deadline - time.monotonic())))
+        return False
+
+    def _await_reply(self, rtype: str, timeout: float = 10.0,
+                     since: int = 0, session: Optional[str] = None
+                     ) -> Dict[str, Any]:
+        """Wait for a ``rtype`` frame.  Only error frames parked AFTER
+        ``since`` (the error-seq snapshot taken before the request was
+        sent) and addressed to ``session`` can fail the wait — stale
+        errors from earlier fire-and-forget submits stay in the
+        :meth:`last_error` buffer where they belong."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while True:
+                for i, msg in enumerate(self._replies):
+                    if msg.get("type") == rtype:
+                        del self._replies[i]
+                        return msg
+                if self._error_seq > since:
+                    fresh = list(self._errors)[-(self._error_seq - since):]
+                    for msg in fresh:
+                        if (msg.get("code") == "session"
+                                and (session is None
+                                     or msg.get("session") == session)):
+                            raise UnknownSessionError(str(msg.get("reason")))
+                        if (msg.get("code") == "admission"
+                                and (session is None
+                                     or msg.get("session") == session)):
+                            raise AdmissionRejected(
+                                str(msg.get("reason", "saturated")),
+                                float(msg.get("retry_after_s") or 1.0))
+                if self._closed:
+                    raise ConnectionError("broker connection lost")
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError(f"no {rtype!r} reply within {timeout}s")
+                self._cond.wait(timeout=min(remaining, 0.5))
+
+    # -- shard routing ------------------------------------------
+
+    def _child(self, shard: str) -> "SessionClient":
+        """The lazily-dialed child client for one shard (router mode).  A
+        child whose reconnect window expired is permanently closed — drop
+        it so the next call dials fresh (the shard may be back by now)."""
+        with self._child_lock:
+            child = self._children.get(shard)
+            if child is not None and child._closed and not child._user_closed:
+                try:
+                    child.close()
+                except OSError:
+                    pass
+                child = None
+            if child is None:
+                host, port = self._by_shard[shard]
+                child = SessionClient(
+                    host, port, token=self.token, timeout=self._timeout,
+                    reconnect=self._reconnect,
+                    reconnect_window=self._reconnect_window,
+                    reconnect_max_delay=self._reconnect_max_delay)
+                self._children[shard] = child
+            return child
+
+    def _home_of(self, session_id: str) -> str:
+        sid = str(session_id)
+        home = self._session_home.get(sid)
+        if home is None:
+            home = self._router.place(sid)
+            self._session_home[sid] = home
+        return home
+
+    def _jobs_by_shard(self, job_ids: List[str]) -> Dict[str, List[str]]:
+        groups: Dict[str, List[str]] = {}
+        for j in job_ids:
+            shard = self._job_home.get(str(j))
+            if shard is None:
+                # Unknown id (another client submitted it): ask every
+                # DIALED shard — at most a wasted table lookup each.
+                with self._child_lock:
+                    dialed = list(self._children)
+                for s in dialed or list(self._by_shard):
+                    groups.setdefault(s, []).append(str(j))
+            else:
+                groups.setdefault(shard, []).append(str(j))
+        return groups
+
+    # -- tenant API --------------------------------------------------------
+
+    def open_session(self, session_id: Optional[str] = None, weight: float = 1.0,
+                     max_in_flight: Optional[int] = None,
+                     tag: Optional[str] = None) -> str:
+        if self._ring is not None:
+            # Mint the id client-side when absent: placement needs the id
+            # before the wire does.
+            sid = str(session_id) if session_id else f"s-{uuid.uuid4().hex[:12]}"
+            self._child(self._home_of(sid)).open_session(
+                sid, weight=weight, max_in_flight=max_in_flight, tag=tag)
+            return sid
+        msg: Dict[str, Any] = {"type": "session_open", "weight": float(weight)}
+        if session_id:
+            msg["session"] = str(session_id)
+        if max_in_flight is not None:
+            msg["max_in_flight"] = int(max_in_flight)
+        if tag is not None:
+            # OPTIONAL classification ("canary"): the broker keeps tagged
+            # sessions out of tenant-facing SLI series.  Absent ⇒ the frame
+            # is byte-identical to the pre-tag protocol.
+            msg["tag"] = str(tag)
+        with self._cond:
+            since = self._error_seq
+        self._send(msg)
+        sid = str(self._await_reply(
+            "session_ok", since=since,
+            session=str(session_id) if session_id else None)["session"])
+        self._sessions[sid] = (float(weight), None if max_in_flight is None
+                               else int(max_in_flight),
+                               str(tag) if tag is not None else None)
+        return sid
+
+    def close_session(self, session_id: str) -> None:
+        if self._ring is not None:
+            sid = str(session_id)
+            shard = self._session_home.pop(sid, None)
+            self._router.forget(sid)
+            if shard is not None:
+                self._child(shard).close_session(sid)
+            return
+        with self._cond:
+            since = self._error_seq
+        self._send({"type": "session_close", "session": str(session_id)})
+        self._await_reply("session_ok", since=since, session=str(session_id))
+        self._sessions.pop(str(session_id), None)
+
+    def detach(self, session_id: str) -> None:
+        """Stop receiving this session's results (they park broker-side in
+        the session's bounded undelivered queue until someone re-attaches)."""
+        if self._ring is not None:
+            self._child(self._home_of(session_id)).detach(session_id)
+            return
+        with self._cond:
+            since = self._error_seq
+        self._send({"type": "session_detach", "session": str(session_id)})
+        self._await_reply("session_ok", since=since, session=str(session_id))
+
+    def submit(self, session_id: str, payloads: Dict[str, Dict[str, Any]]) -> List[str]:
+        """Ship jobs into a session; returns the job ids (caller-supplied
+        keys).  A rejected session surfaces via :meth:`wait_any` failures
+        or :meth:`last_error` — the error frame is asynchronous."""
+        if self._ring is not None:
+            shard = self._home_of(session_id)
+            ids = self._child(shard).submit(session_id, payloads)
+            for j in ids:
+                self._job_home[j] = shard
+            return ids
+        jobs = [{"job_id": job_id, **payload} for job_id, payload in payloads.items()]
+        self._send({"type": "submit", "session": str(session_id), "jobs": jobs})
+        return [str(j["job_id"]) for j in jobs]
+
+    def cancel(self, job_ids: List[str]) -> None:
+        """Best-effort cancel of not-yet-dispatched jobs (the broker's
+        ``cancel`` frame; fire-and-forget, like the in-process call)."""
+        if self._ring is not None:
+            for shard, ids in self._jobs_by_shard(job_ids).items():
+                try:
+                    self._child(shard).cancel(ids)
+                except (ConnectionError, OSError):
+                    continue  # a dead shard's queue dies with it
+                for j in ids:
+                    self._job_home.pop(j, None)
+            return
+        self._send({"type": "cancel", "jobs": [str(j) for j in job_ids]})
+
+    def session_stats(self, session_id: Optional[str] = None,
+                      reset_chips: bool = False) -> Dict[str, Any]:
+        """The broker's sizing snapshot for one session (the OPTIONAL
+        ``session_stats`` wire message): ``capacity`` and
+        ``prefetch`` are the session's weighted fleet share; ``mesh_pop``
+        and ``chips`` are fleet-wide facts.  ``reset_chips=True`` starts a
+        fresh chips-seen observation window broker-side first."""
+        if self._ring is not None:
+            sid = str(session_id) if session_id else DEFAULT_SESSION
+            return self._child(self._home_of(sid)).session_stats(
+                sid, reset_chips=reset_chips)
+        msg: Dict[str, Any] = {"type": "session_stats"}
+        if session_id:
+            msg["session"] = str(session_id)
+        if reset_chips:
+            msg["reset_chips"] = True
+        with self._cond:
+            since = self._error_seq
+        self._send(msg)
+        return self._await_reply(
+            "session_stats", since=since,
+            session=str(session_id) if session_id else None)
+
+    def wait_any(self, job_ids: List[str], timeout: Optional[float] = None
+                 ) -> Tuple[Dict[str, float], Dict[str, str]]:
+        """Block until ≥1 of ``job_ids`` is terminal; ``(results, failures)``
+        drained from the client table (same contract as the broker's)."""
+        if self._ring is not None:
+            return self._wait_any_routed(job_ids, timeout)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        want = set(job_ids)
+        with self._cond:
+            while True:
+                done_r = {j: self._results.pop(j) for j in list(want)
+                          if j in self._results}
+                done_f = {j: self._failures.pop(j) for j in list(want)
+                          if j in self._failures}
+                if done_r or done_f:
+                    return done_r, done_f
+                if self._closed:
+                    raise ConnectionError("broker connection lost")
+                remaining = None if deadline is None else deadline - time.monotonic()
+                if remaining is not None and remaining <= 0:
+                    return {}, {}
+                self._cond.wait(timeout=min(remaining, 0.5) if remaining is not None else 0.5)
+
+    def _wait_any_routed(self, job_ids: List[str],
+                         timeout: Optional[float] = None
+                         ) -> Tuple[Dict[str, float], Dict[str, str]]:
+        """Router-mode wait_any.  One session's jobs live on ONE shard, so
+        the common case is a single group and a full-timeout delegate; ids
+        spanning shards poll each home in short slices."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        groups = self._jobs_by_shard(job_ids)
+        if not groups:
+            return {}, {}
+        while True:
+            for shard, ids in groups.items():
+                if len(groups) == 1:
+                    slice_t = (None if deadline is None
+                               else max(0.0, deadline - time.monotonic()))
+                else:
+                    slice_t = 0.05
+                r, f = self._child(shard).wait_any(ids, timeout=slice_t)
+                if r or f:
+                    for j in list(r) + list(f):
+                        self._job_home.pop(j, None)
+                    return r, f
+            if deadline is not None and time.monotonic() >= deadline:
+                return {}, {}
+
+    def last_error(self) -> Optional[Dict[str, Any]]:
+        """The most recent structured ``error`` frame, if any (satellite:
+        unknown-session submits answer with one instead of silence)."""
+        if self._ring is not None:
+            with self._child_lock:
+                children = list(self._children.values())
+            for child in children:
+                err = child.last_error()
+                if err is not None:
+                    return err
+            return None
+        with self._cond:
+            return self._errors[-1] if self._errors else None
+
+    def close(self) -> None:
+        self._user_closed = True
+        if self._ring is not None:
+            with self._child_lock:
+                children, self._children = dict(self._children), {}
+            for child in children.values():
+                child.close()
+            return
+        try:
+            self._sock.close()
+        except OSError:
+            pass

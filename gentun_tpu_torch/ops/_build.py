@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import subprocess
 import threading
@@ -29,6 +30,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+logger = logging.getLogger("gentun_tpu_torch")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_dir: Path = BUILD_DIR
@@ -76,13 +78,18 @@ def use_build_dir(path) -> Path:
     return _build_dir
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def source_hash() -> str:
+    """16 hex digits over the ``nvcc`` flags and every source's name and bytes."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return _build_dir / f"libgentun_kernels_{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    return _build_dir / f"libgentun_kernels_{source_hash()}.so"
 
 
 def build() -> Path:
@@ -100,6 +107,7 @@ def build() -> Path:
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     cu = [str(p) for p in _sources() if p.suffix == ".cu"]
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    logger.info("building %s with nvcc", out)
     proc = subprocess.run(cmd, capture_output=True, text=True)
     build_log = proc.stdout + proc.stderr
     if proc.returncode != 0:

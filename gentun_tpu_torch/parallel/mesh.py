@@ -3,18 +3,26 @@
 The jax-free half of the JAX package's ``parallel/mesh.py``: compile-shape
 bucketing (:func:`pop_bucket`), population padding (:func:`pad_population`)
 and the per-genome cost model with its size classes
-(:func:`cnn_genome_cost`, :func:`classify_genome_cost`).  The device half
+(:func:`cnn_genome_cost`, :func:`classify_genome_cost`), and the dispatch
+plane's mesh arithmetic (:func:`mesh_factor`, :func:`host_worker_capacity`,
+:func:`job_size_class`, the worker's ``--mesh`` override).  The device half
 (``auto_mesh``, ``shard_cv_args``: multi-device placement) is not ported
 yet; the port runs on one device.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 __all__ = [
     "pad_population",
     "pop_bucket",
+    "mesh_factor",
+    "host_worker_capacity",
+    "job_size_class",
+    "parse_mesh_spec",
+    "set_mesh_override",
+    "get_mesh_override",
     "GenomeCost",
     "cnn_genome_cost",
     "classify_genome_cost",
@@ -33,6 +41,42 @@ SIZE_SMALL = "small"
 SIZE_BIG = "big"
 SIZE_MICRO = "micro"
 SIZE_CLASSES = (SIZE_SMALL, SIZE_BIG, SIZE_MICRO)
+
+
+def _largest_divisor_leq(n: int, cap: int) -> int:
+    """Largest divisor of ``n`` that is <= cap (>=1)."""
+    for d in range(min(n, cap), 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+def mesh_factor(n_devices: int, pop_size: Optional[int] = None,
+                size_class: str = "small") -> Tuple[int, int]:
+    """The ``(pop, data)`` factoring of ``n_devices`` devices.
+
+    Pure integer math — no device objects, no backend init — so the
+    dispatch plane (worker capacity derivation, broker-side sizing) can
+    reason about mesh shapes without touching a device.  The multi-device
+    evaluator (not ported yet) is to build its mesh from this factoring,
+    so a worker's advertised mesh shape and its evaluation mesh agree.
+
+    ``size_class`` (see :data:`SIZE_CLASSES`) flips the preference: the
+    default ``small`` puts devices on the communication-free ``pop`` axis
+    first; ``big``/``micro`` pin the narrow-pop ``(1, n)`` extreme so an
+    over-budget genome's activations shard across the FULL data axis.
+    """
+    n = int(n_devices)
+    if n < 1:
+        raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+    if size_class not in SIZE_CLASSES:
+        raise ValueError(
+            f"size_class must be one of {SIZE_CLASSES}, got {size_class!r}")
+    if size_class != SIZE_SMALL:
+        return 1, n
+    cap = n if pop_size is None else max(1, int(pop_size))
+    pop_axis = _largest_divisor_leq(n, cap)
+    return pop_axis, n // pop_axis
 
 
 def pop_bucket(n: int) -> int:
@@ -175,6 +219,190 @@ def classify_genome_cost(
         if b % a == 0 and cost.act_bytes_per_example * (-(-(b // a) // n)) <= avail:
             return SIZE_MICRO, a
     return SIZE_MICRO, b  # a=b always fits per the one-example check above
+
+
+#: Memo for :func:`job_size_class`, keyed on the cost-relevant wire-config
+#: values.  A generation ships ONE ``additional_parameters`` config for its
+#: whole population, so the dispatch hot path (one classify per dispatched
+#: job) is a pure cache hit in steady state — what keeps the per-job cost
+#: inside the ≤2 %-of-dispatch gate (``scripts/broker_throughput.py``).
+#: Bounded: distinct configs are one-per-session-generation rare, but a
+#: hostile stream of unique configs must not grow the broker unboundedly.
+_JOB_CLASS_CACHE: Dict[tuple, str] = {}
+_JOB_CLASS_CACHE_MAX = 4096
+
+
+def _hashable(v: Any) -> Any:
+    return tuple(v) if isinstance(v, list) else v
+
+
+def job_size_class(params: Optional[Mapping[str, Any]], n_devices: int = 1) -> str:
+    """Size class for a dispatch-plane job from its wire config dict.
+
+    The jax-free entry point the broker's dispatch counter, the worker's
+    ``_chunk_jobs``, and the master's fill target share.  Returns
+    ``small`` whenever the feature is off (no ``device_budget`` in the
+    shipped config) or the config lacks the fields the cost model needs
+    (``input_shape``/``n_classes`` are usually inferred worker-side from
+    the data) — degrading exactly like the broker's ``_parse_mesh``
+    treats a malformed mesh advert, because dispatch must route jobs from
+    any master version, while the evaluator's own classification stays
+    loud (``models/cnn.py``).  Note ``small`` vs not is independent of
+    ``n_devices``; the axis width only moves the big/micro boundary.
+    """
+    if not params:
+        return SIZE_SMALL
+    budget = params.get("device_budget")
+    if not budget:
+        return SIZE_SMALL
+    try:
+        input_shape = params.get("input_shape")
+        n_classes = params.get("n_classes")
+        if not input_shape or not n_classes:
+            return SIZE_SMALL
+        key = (
+            _hashable(params.get("nodes")),
+            _hashable(params.get("kernels_per_layer")),
+            _hashable(input_shape),
+            n_classes,
+            params.get("dense_units"),
+            params.get("batch_size"),
+            params.get("compute_dtype"),
+            params.get("stage_exit_conv"),
+            budget,
+            n_devices,
+        )
+        hit = _JOB_CLASS_CACHE.get(key)
+        if hit is not None:
+            return hit
+        cost = cnn_genome_cost(
+            tuple(params.get("nodes", (3, 5))),
+            tuple(params.get("kernels_per_layer", (20, 50))),
+            tuple(input_shape),
+            int(params.get("dense_units", 500)),
+            int(n_classes),
+            str(params.get("compute_dtype", "bfloat16")),
+            bool(params.get("stage_exit_conv", False)),
+        )
+        klass, _ = classify_genome_cost(
+            cost, int(params.get("batch_size", 128)), n_devices, int(budget))
+        if len(_JOB_CLASS_CACHE) >= _JOB_CLASS_CACHE_MAX:
+            _JOB_CLASS_CACHE.clear()
+        _JOB_CLASS_CACHE[key] = klass
+        return klass
+    except (TypeError, ValueError):
+        # Unevaluable or malformed configs still need a dispatch decision;
+        # the worker's evaluator raises the loud error with full context.
+        return SIZE_SMALL
+
+
+def parse_mesh_spec(spec: str) -> Tuple[int, int]:
+    """Parse the operator mesh override ``"POPxDATA"`` → ``(pop, data)``.
+
+    Loud ``ValueError`` on anything malformed or non-positive; the worker
+    CLI converts it to ``SystemExit``.  Whether the product factors the
+    actual device count is checked where the count is known
+    (``GentunClient._derive_mesh_capacity``), so a stale
+    override is re-validated on every :meth:`GentunClient.remesh`.
+    """
+    parts = str(spec).strip().lower().split("x")
+    if len(parts) != 2:
+        raise ValueError(
+            f"mesh override must be 'POPxDATA' (e.g. '4x2'), got {spec!r}")
+    try:
+        pop_axis, data_axis = int(parts[0]), int(parts[1])
+    except ValueError:
+        raise ValueError(
+            f"mesh override must be 'POPxDATA' with integer axes, got {spec!r}")
+    if pop_axis < 1 or data_axis < 1:
+        raise ValueError(
+            f"mesh override axes must be positive, got {pop_axis}x{data_axis}")
+    return pop_axis, data_axis
+
+
+#: Process-wide operator mesh override (worker ``--mesh POPxDATA``).
+#: Read by the worker's capacity derivation when the caller pins no
+#: explicit axes; it never rides the wire config (cache keys and fitness
+#: fingerprints stay untouched).
+_MESH_OVERRIDE: Optional[Tuple[int, int]] = None
+
+
+def set_mesh_override(axes: Optional[Tuple[int, int]]) -> None:
+    """Install (or clear, with ``None``) the process-wide mesh override."""
+    global _MESH_OVERRIDE
+    if axes is not None:
+        pop_axis, data_axis = int(axes[0]), int(axes[1])
+        if pop_axis < 1 or data_axis < 1:
+            raise ValueError(
+                f"mesh override axes must be positive, got {pop_axis}x{data_axis}")
+        axes = (pop_axis, data_axis)
+    _MESH_OVERRIDE = axes
+
+
+def get_mesh_override() -> Optional[Tuple[int, int]]:
+    return _MESH_OVERRIDE
+
+
+def host_worker_capacity(n_devices: int, slots_per_device: int = 2,
+                         size_class: str = SIZE_SMALL,
+                         pop_axis: Optional[int] = None,
+                         data_axis: Optional[int] = None) -> Tuple[int, int, int]:
+    """Derive a host-level worker's capacity from its local device mesh.
+
+    Returns ``(capacity, pop_axis, data_axis)``.  The host (not the chip)
+    is the unit of fleet membership: one worker drives every local device
+    through the ``(pop, data)`` mesh, and its dispatch window must be a
+    shape the compiled evaluator actually wants — so capacity is derived,
+    never typed in:
+
+    - start from ``slots_per_device × pop_axis`` (default 2 per device:
+      the compile-bucket floor, so even a 1-device host evaluates on the
+      stable multi-slot program family);
+    - round up to the compile bucket (:func:`pop_bucket`), so a full
+      window is one already-cached compile shape;
+    - if the bucket shape and the pop-axis size disagree (non-power-of-two
+      device counts), step up into the exact-shape regime (≥ 16) and round
+      to the next pop-axis multiple — every full window then shards with
+      ZERO padding waste.
+
+    Power-of-two hosts land on {2, 4, 8, 16} for 1/2/4/8 devices: always
+    a compile bucket AND a pop-axis multiple, so steady-state windows
+    never pad and never recompile.
+
+    ``size_class`` derives the per-class window instead: ``big``/``micro``
+    jobs run one genome per program on a ``(1, n_devices)`` mesh, so the
+    window is exactly 1 — no bucketing, no padding, the frame IS the job.
+    Explicit ``pop_axis``/``data_axis`` (the worker's ``--mesh POPxDATA``
+    override) replace the heuristic factoring for the small class; their
+    product must equal ``n_devices`` (loud ``ValueError`` otherwise, which
+    ``remesh()`` re-raises if the device count changed under an override).
+    """
+    n = int(n_devices)
+    if size_class not in SIZE_CLASSES:
+        raise ValueError(
+            f"size_class must be one of {SIZE_CLASSES}, got {size_class!r}")
+    if size_class != SIZE_SMALL:
+        return 1, 1, n
+    if pop_axis is not None or data_axis is not None:
+        if pop_axis is None or data_axis is None:
+            raise ValueError(
+                "mesh override requires both pop_axis and data_axis")
+        pop_axis, data_axis = int(pop_axis), int(data_axis)
+        if pop_axis < 1 or data_axis < 1:
+            raise ValueError(
+                f"mesh override axes must be positive, got {pop_axis}x{data_axis}")
+        if pop_axis * data_axis != n:
+            raise ValueError(
+                f"mesh override {pop_axis}x{data_axis} does not factor "
+                f"{n} local devices")
+    else:
+        pop_axis, data_axis = mesh_factor(n)
+    cap = pop_axis * max(1, int(slots_per_device))
+    b = pop_bucket(cap)
+    if b % pop_axis:
+        b = max(16, cap)
+        b += (-b) % pop_axis
+    return b, pop_axis, data_axis
 
 
 def pad_population(genomes: Sequence[Any], multiple: int) -> Tuple[List[Any], int]:

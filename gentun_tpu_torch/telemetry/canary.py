@@ -1,0 +1,646 @@
+"""Black-box canary plane: golden-genome probes of the REAL serving path.
+
+Every sensor built through PRs 14–19 is white-box — the fleet reporting
+on itself.  Nothing measured the fleet the way a *user* experiences it,
+and nothing continuously verified that the increasingly aggressive
+serving path (sharding, cross-session packing, the wire fast path,
+shared caches) still returns **bit-correct** fitnesses.  This module is
+that missing synthetic monitor: a :class:`CanaryDaemon` — a stdlib-HTTP
+sibling of the fitness/compile/aggregator services — continuously runs
+tiny known-answer probe sessions end to end through the production
+stack:
+
+1. ``SessionClient.open_session(tag="canary", weight≈0, quota 1)`` —
+   exercising auth, admission control, shard routing, reconnect;
+2. submit ONE **golden genome** — a member of a content-addressed golden
+   set keyed ``space_key × fidelity fingerprint × genome key`` whose
+   fitness is *sealed* at first evaluation (:class:`GoldenSet`);
+3. wait for the result, read the broker's time-to-first-dispatch,
+   verify the fitness is **bit-equal** to the sealed value, close.
+
+Each probe decomposes into golden-signal SLIs (docs/OBSERVABILITY.md):
+``canary_open_seconds``, ``canary_ttfd_seconds``, ``canary_e2e_seconds``,
+``canary_errors_total{stage}``, and the headline
+``canary_fitness_drift_total`` — a returned fitness that is not
+bit-equal to its sealed value means the fleet is lying, and
+``telemetry.slo.default_rules``'s zero-tolerance ``canary_correctness``
+rule pages on the first occurrence.
+
+Probes are invisible to tenants by construction:
+
+- **weight ≈ 0, quota 1** — the fair-share scheduler only hands a probe
+  a slot the tenants aren't contending for, and at most one probe job is
+  ever in flight;
+- **rung-0 fidelity** — the cheapest runnable schedule, tagged with a
+  real v1 fidelity tag so the worker's fingerprint check is exercised;
+- **no_memo** — the probe payload carries ``no_memo: true``, which the
+  worker folds into its evaluation grouping and answers with NO fitness
+  cache at all (neither lookup nor publish): every probe is a real
+  evaluation, and sealed goldens never memoize into tenant caches;
+- **session tag** — the broker keeps ``tag="canary"`` sessions out of
+  tenant-facing SLI series (``session_in_flight``,
+  ``session_queue_depth``, per-session ``queue_wait_s``).
+
+With ``--aggregator-url`` the daemon pushes its SLIs into the fleet
+aggregator (role ``canary``) where the three stock canary rules judge
+them; ``/canaryz`` serves the bounded probe history, ``/statusz`` the
+config + verdict counts, ``/healthz`` liveness.  With lineage forensics
+enabled the probe's trace context carries the ``fz`` flag, so the cost
+ledger attributes canary device-seconds to the probe session — the data
+behind ``scripts/canary_study.py``'s ≤1%-overhead gate.
+
+Standalone::
+
+    python -m gentun_tpu_torch.telemetry.canary \\
+        --broker-urls tcp://b0:5672,tcp://b1:5672 \\
+        --aggregator-url http://agg:9100 --probes probes.json
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import struct
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, List, Optional, Tuple
+
+from . import lineage as _lineage
+from . import spans as _tele
+from .registry import get_registry as _get_registry
+from ..utils.fitness_store import FITNESS_PROTOCOL
+
+__all__ = ["GoldenSet", "CanaryDaemon", "main", "CANARY_TAG"]
+
+logger = logging.getLogger("gentun_tpu_torch.telemetry")
+
+#: The session tag the broker recognizes (sessions.py / broker.py).
+CANARY_TAG = "canary"
+
+#: Probe records kept for ``/canaryz`` (durable copy: telemetry.jsonl).
+_PROBE_RING = 256
+
+
+def _bits(value: float) -> bytes:
+    """IEEE-754 little-endian bytes — THE bit-equality the golden check
+    means (``==`` would call -0.0 equal to 0.0 and NaN unequal to
+    itself; the serving path must reproduce the exact bits)."""
+    return struct.pack("<d", float(value))
+
+
+class GoldenSet:
+    """Content-addressed golden fitnesses, sealed at first evaluation.
+
+    Key: ``space_key × fidelity fingerprint × genome key`` — the same
+    identity triple the fitness store files measurements under, so a
+    golden is pinned to one search space, one training schedule, and one
+    exact genome.  The FIRST fitness observed for a key is *sealed*;
+    every later probe must reproduce it bit-for-bit.  Optionally
+    persisted as JSON (atomic tmp+rename per seal) so a restarted canary
+    keeps holding the fleet to the same answers.
+
+    The file is stamped with the port's fitness protocol
+    (``utils.fitness_store.FITNESS_PROTOCOL``): a file sealed under another
+    protocol (the JAX package's goldens carry no stamp) holds another
+    device class's bits, so loading it raises ``ValueError`` instead of
+    probing the fleet against it.
+    """
+
+    def __init__(self, path: Optional[str] = None):
+        self._path = path
+        self._lock = threading.Lock()
+        self._sealed: Dict[str, float] = {}
+        if path and os.path.exists(path):
+            try:
+                with open(path) as fh:
+                    raw = json.load(fh)
+            except (OSError, ValueError):
+                logger.exception("golden set %s unreadable; starting empty", path)
+                raw = {}
+            if raw and raw.get("protocol") != FITNESS_PROTOCOL:
+                raise ValueError(
+                    f"golden set {path} was sealed under fitness protocol "
+                    f"{raw.get('protocol')!r}, not {FITNESS_PROTOCOL!r}: its values "
+                    f"come from another package's fitness path; refusing to probe "
+                    f"against it")
+            self._sealed = {str(k): float(v)
+                            for k, v in (raw.get("sealed") or {}).items()}
+
+    @staticmethod
+    def key(space_key: str, fingerprint: str, genome_key: str) -> str:
+        return f"{space_key}:{fingerprint}:{genome_key}"
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._sealed)
+
+    def get(self, key: str) -> Optional[float]:
+        with self._lock:
+            return self._sealed.get(key)
+
+    def seal(self, key: str, fitness: float) -> Tuple[float, bool]:
+        """Seal ``fitness`` under ``key`` unless already sealed; returns
+        ``(sealed_value, newly_sealed)`` — an existing seal always wins
+        (first evaluation is the truth; later values are *verified*)."""
+        with self._lock:
+            cur = self._sealed.get(key)
+            if cur is not None:
+                return cur, False
+            self._sealed[key] = float(fitness)
+            snap = dict(self._sealed)
+        self._persist(snap)
+        return float(fitness), True
+
+    def snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._sealed)
+
+    def _persist(self, sealed: Dict[str, float]) -> None:
+        if not self._path:
+            return
+        tmp = f"{self._path}.tmp"
+        try:
+            with open(tmp, "w") as fh:
+                json.dump({"protocol": FITNESS_PROTOCOL, "sealed": sealed}, fh,
+                          indent=2, sort_keys=True)
+            os.replace(tmp, self._path)
+        except OSError:
+            logger.exception("golden set persist failed: %s", self._path)
+
+
+# -- HTTP plane --------------------------------------------------------------
+
+
+class _Handler(BaseHTTPRequestHandler):
+    """Request handler; ``self.server.canary`` is the daemon."""
+
+    server_version = "gentun-canary/1"
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):  # noqa: D102 - silence stderr chatter
+        pass
+
+    def _send_json(self, code: int, obj: Any) -> None:
+        body = json.dumps(obj, separators=(",", ":")).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):  # noqa: N802 - http.server API
+        path = self.path.split("?", 1)[0].rstrip("/") or "/"
+        cn = self.server.canary  # type: ignore[attr-defined]
+        if path in ("/", "/healthz"):
+            self._send_json(200, {"status": "ok", **cn.stats()})
+        elif path == "/statusz":
+            self._send_json(200, cn.statusz())
+        elif path == "/canaryz":
+            self._send_json(200, cn.canaryz())
+        else:
+            self._send_json(404, {"error": f"no route {path}"})
+
+
+# -- the daemon --------------------------------------------------------------
+
+
+class CanaryDaemon:
+    """Continuously probes a broker fleet with golden genomes.
+
+    Parameters
+    ----------
+    broker_urls:
+        Broker address list (``["tcp://h:p", ...]`` or ``"h:p,h:p"``) —
+        handed to :class:`~gentun_tpu_torch.distributed.sessions.SessionClient`
+        verbatim, so a multi-shard list probes through the same
+        consistent-hash router tenants use.
+    probes:
+        Known-answer probe payloads: each a dict with ``genes`` and
+        (optionally) ``additional_parameters`` the fleet's species can
+        evaluate.  Probed round-robin, one per cycle.
+    space_key:
+        Names the search space the probes belong to — the first component
+        of every golden key, so one golden file can serve many fleets.
+    aggregator_url:
+        Optional fleet aggregator; when set the daemon pushes its SLIs
+        there under role ``canary`` for the stock canary rules to judge.
+    probe_interval / probe_timeout:
+        Seconds between probe cycles / per-probe result deadline.
+    golden_path:
+        Optional JSON persistence for the golden set.
+    token:
+        Broker auth token (the same ``--token`` workers use).
+    """
+
+    def __init__(
+        self,
+        broker_urls,
+        probes: List[Dict[str, Any]],
+        space_key: str = "default",
+        aggregator_url: Optional[str] = None,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        probe_interval: float = 10.0,
+        probe_timeout: float = 30.0,
+        golden_path: Optional[str] = None,
+        token: Optional[str] = None,
+        serve_http: bool = True,
+    ):
+        if not probes:
+            raise ValueError("CanaryDaemon needs at least one probe payload")
+        if isinstance(broker_urls, str):
+            broker_urls = [u for u in broker_urls.split(",") if u.strip()]
+        self.broker_urls = list(broker_urls)
+        if not self.broker_urls:
+            raise ValueError("CanaryDaemon needs at least one broker url")
+        self.probes = [dict(p) for p in probes]
+        self.space_key = str(space_key)
+        self.probe_interval = float(probe_interval)
+        self.probe_timeout = float(probe_timeout)
+        self.token = token
+        self.golden = GoldenSet(golden_path)
+        self._agg_url = aggregator_url.rstrip("/") if aggregator_url else None
+        self._pusher = None
+        self._client = None
+        self._client_lock = threading.Lock()
+        self._probe_i = 0
+        self._cycle = 0
+        self._probes_ring: List[Dict[str, Any]] = []
+        self._ok_total = 0
+        self._drift_total = 0
+        self._error_total = 0
+        self._started = time.time()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._http_thread: Optional[threading.Thread] = None
+        if serve_http:
+            self._httpd = ThreadingHTTPServer((host, port), _Handler)
+            self._httpd.daemon_threads = True
+            self._httpd.canary = self  # type: ignore[attr-defined]
+
+    # -- address -----------------------------------------------------------
+
+    @property
+    def address(self) -> Optional[Tuple[str, int]]:
+        return self._httpd.server_address[:2] if self._httpd else None
+
+    @property
+    def url(self) -> Optional[str]:
+        addr = self.address
+        return f"http://{addr[0]}:{addr[1]}" if addr else None
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> "CanaryDaemon":
+        self._stop.clear()
+        if self._agg_url is not None and self._pusher is None:
+            from .aggregator import acquire_pusher
+
+            self._pusher = acquire_pusher(self._agg_url, role="canary")
+        if self._httpd is not None:
+            self._http_thread = threading.Thread(
+                target=self._httpd.serve_forever,
+                kwargs={"poll_interval": 0.25},
+                name="canary-http", daemon=True)
+            self._http_thread.start()
+        self._thread = threading.Thread(
+            target=self._loop, name="canary", daemon=True)
+        self._thread.start()
+        logger.info(
+            "canary serving on %s (brokers %s, %d probe(s), every %.1fs)",
+            self.url or "<no http>", ",".join(self.broker_urls),
+            len(self.probes), self.probe_interval)
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+        if self._http_thread is not None:
+            self._http_thread.join(timeout=5.0)
+            self._http_thread = None
+        if self._thread is not None:
+            self._thread.join(timeout=max(5.0, self.probe_timeout))
+            self._thread = None
+        with self._client_lock:
+            client, self._client = self._client, None
+        if client is not None:
+            try:
+                client.close()
+            except Exception:  # noqa: BLE001 - teardown best-effort
+                pass
+        if self._pusher is not None:
+            from .aggregator import release_pusher
+
+            release_pusher(self._pusher)
+            self._pusher = None
+
+    def __enter__(self) -> "CanaryDaemon":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.probe_interval):
+            try:
+                self.probe_once()
+            except Exception:  # noqa: BLE001 - the loop must survive anything
+                logger.exception("canary probe cycle failed")
+
+    # -- the probe ---------------------------------------------------------
+
+    def _get_client(self):
+        """The persistent probe client — reused across cycles so broker
+        restarts exercise the real reconnect path; rebuilt from scratch
+        only after a fatal (window-exhausted) connection error."""
+        from ..distributed.sessions import SessionClient
+
+        with self._client_lock:
+            if self._client is None:
+                self._client = SessionClient(
+                    broker_urls=self.broker_urls, token=self.token,
+                    timeout=min(10.0, self.probe_timeout), reconnect=True,
+                    reconnect_window=self.probe_timeout)
+            return self._client
+
+    def _drop_client(self) -> None:
+        with self._client_lock:
+            client, self._client = self._client, None
+        if client is not None:
+            try:
+                client.close()
+            except Exception:  # noqa: BLE001
+                pass
+
+    def _build_payload(self, probe: Dict[str, Any],
+                       fingerprint: str) -> Dict[str, Any]:
+        """The wire payload for one probe: the caller's genes + params,
+        plus a rung-0 v1 fidelity tag (the fingerprint check is part of
+        the path under test) and the ``no_memo`` dedup bypass."""
+        params = probe.get("additional_parameters") or {}
+        payload: Dict[str, Any] = {"genes": probe["genes"], "no_memo": True}
+        if params:
+            payload["additional_parameters"] = params
+        payload["fidelity"] = {"v": 1, "rung": 0, "fingerprint": fingerprint}
+        ctx = _lineage.forensic_context(_tele.current_context())
+        if ctx:
+            # With forensics on, workers split the probe's device time
+            # into ledger cells under the canary session — the data
+            # behind the ≤1%-overhead gate (scripts/canary_study.py).
+            payload["trace"] = ctx
+        return payload
+
+    def probe_once(self, now: Optional[float] = None) -> Dict[str, Any]:
+        """One full probe cycle; returns (and rings) the probe record.
+
+        Public so tests, the chaos act, and the study harness drive
+        cycles deterministically — the background loop calls nothing
+        else.  Never raises: every failure mode lands in the record's
+        ``error``/``stage`` fields and the ``canary_errors_total{stage}``
+        counter.
+        """
+        now = time.time() if now is None else float(now)
+        reg = _get_registry()
+        self._cycle += 1
+        probe = self.probes[self._probe_i % len(self.probes)]
+        self._probe_i += 1
+        gk = _lineage.genome_key(probe["genes"])
+        record: Dict[str, Any] = {
+            "type": "canary_probe",
+            "cycle": self._cycle,
+            "space_key": self.space_key,
+            "genome": gk,
+            "t": now,
+        }
+        sid = f"canary-{uuid.uuid4().hex[:10]}"
+        t0 = time.monotonic()
+        stage = "open"
+        client = None
+        drop = False
+        with _tele.span("canary_probe", {"session": sid, "genome": gk}):
+            try:
+                client = self._get_client()
+                client.open_session(sid, weight=1e-6, max_in_flight=1,
+                                    tag=CANARY_TAG)
+                open_s = time.monotonic() - t0
+                record["open_s"] = round(open_s, 6)
+                reg.histogram("canary_open_seconds").observe(open_s)
+
+                stage = "submit"
+                fingerprint = self._build_fingerprint(probe)
+                job_id = f"cn-{self._cycle}-{uuid.uuid4().hex[:6]}"
+                client.submit(sid, {job_id: self._build_payload(probe,
+                                                                fingerprint)})
+
+                stage = "result"
+                deadline = time.monotonic() + self.probe_timeout
+                fitness: Optional[float] = None
+                while True:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        raise TimeoutError(
+                            f"probe {job_id} no result in "
+                            f"{self.probe_timeout}s")
+                    results, failures = client.wait_any([job_id],
+                                                        timeout=remaining)
+                    if job_id in failures:
+                        raise RuntimeError(f"probe failed: {failures[job_id]}")
+                    if job_id in results:
+                        fitness = float(results[job_id])
+                        break
+                e2e = time.monotonic() - t0
+                record["e2e_s"] = round(e2e, 6)
+                reg.histogram("canary_e2e_seconds").observe(e2e)
+
+                # TTFD rides the (OPTIONAL) session_stats reply — absent
+                # from old brokers, in which case the SLI is not observed.
+                try:
+                    ttfd = client.session_stats(sid).get("ttfd_s")
+                except Exception:  # noqa: BLE001 - stats are advisory
+                    ttfd = None
+                if ttfd is not None:
+                    record["ttfd_s"] = round(float(ttfd), 6)
+                    reg.histogram("canary_ttfd_seconds").observe(float(ttfd))
+
+                stage = "verify"
+                key = GoldenSet.key(self.space_key, fingerprint, gk)
+                sealed, newly = self.golden.seal(key, fitness)
+                record["fitness"] = fitness
+                record["sealed"] = sealed
+                record["newly_sealed"] = newly
+                if not newly and _bits(fitness) != _bits(sealed):
+                    # THE headline: the fleet returned a wrong answer.
+                    self._drift_total += 1
+                    record["result"] = "drift"
+                    reg.counter("canary_fitness_drift_total").inc()
+                    reg.counter("canary_probes_total", result="drift").inc()
+                    if _tele.enabled():
+                        _tele.record_event("canary_drift", {
+                            "session": sid, "genome": gk, "key": key,
+                            "fitness": fitness, "sealed": sealed,
+                            "cycle": self._cycle,
+                        })
+                    logger.error(
+                        "CANARY DRIFT: golden %s returned %r, sealed %r — "
+                        "the fleet is returning wrong fitnesses", key,
+                        fitness, sealed)
+                else:
+                    self._ok_total += 1
+                    record["result"] = "ok"
+                    reg.counter("canary_probes_total", result="ok").inc()
+            except Exception as e:  # noqa: BLE001 - every failure is a datum
+                self._error_total += 1
+                record["result"] = "error"
+                record["stage"] = stage
+                record["error"] = f"{type(e).__name__}: {e}"[:500]
+                reg.counter("canary_errors_total", stage=stage).inc()
+                reg.counter("canary_probes_total", result="error").inc()
+                logger.warning("canary probe failed at %s: %s", stage, e)
+                # A torn transport means the persistent client is suspect:
+                # rebuild it next cycle (the fresh dial is itself a probe
+                # of the open path).  A TimeoutError is NOT torn transport
+                # — the broker is reachable, the fleet is slow/hung.
+                drop = (isinstance(e, ConnectionError)
+                        or (isinstance(e, OSError)
+                            and not isinstance(e, TimeoutError)))
+            finally:
+                if client is not None and not drop:
+                    try:
+                        client.close_session(sid)
+                    except Exception:  # noqa: BLE001 - close is best-effort
+                        pass
+                if drop:
+                    self._drop_client()
+        reg.gauge("canary_goldens_sealed").set(len(self.golden))
+        self._probes_ring.append(record)
+        if len(self._probes_ring) > _PROBE_RING:
+            del self._probes_ring[: len(self._probes_ring) - _PROBE_RING]
+        if _tele.enabled():
+            _tele.emit_record(record)
+        return record
+
+    def _build_fingerprint(self, probe: Dict[str, Any]) -> str:
+        from ..utils.fitness_store import fidelity_fingerprint
+
+        return fidelity_fingerprint(probe.get("additional_parameters") or {})
+
+    # -- read side ---------------------------------------------------------
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "uptime_s": round(time.time() - self._started, 3),
+            "cycles": self._cycle,
+            "ok_total": self._ok_total,
+            "drift_total": self._drift_total,
+            "error_total": self._error_total,
+            "goldens_sealed": len(self.golden),
+        }
+
+    def statusz(self) -> Dict[str, Any]:
+        return {
+            "status": "ok",
+            **self.stats(),
+            "config": {
+                "broker_urls": self.broker_urls,
+                "space_key": self.space_key,
+                "probes": len(self.probes),
+                "probe_interval": self.probe_interval,
+                "probe_timeout": self.probe_timeout,
+                "aggregator": self._agg_url or "<none>",
+            },
+            "goldens": self.golden.snapshot(),
+            "last_probe": self._probes_ring[-1] if self._probes_ring else None,
+        }
+
+    def canaryz(self) -> Dict[str, Any]:
+        return {"probes": list(self._probes_ring),
+                "total": self._cycle,
+                "ok": self._ok_total,
+                "drift": self._drift_total,
+                "errors": self._error_total}
+
+
+# -- standalone entrypoint ---------------------------------------------------
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """``python -m gentun_tpu_torch.telemetry.canary`` — run the daemon."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m gentun_tpu_torch.telemetry.canary",
+        description="black-box canary: golden-genome correctness sentinel "
+                    "+ end-to-end SLI probes of a broker fleet")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=9093,
+                    help="ops plane bind port (/healthz /statusz /canaryz)")
+    ap.add_argument("--broker-urls", required=True, metavar="URLS",
+                    help="comma-separated broker addresses, e.g. "
+                         "tcp://b0:5672,tcp://b1:5672 — multi-shard lists "
+                         "probe through the tenants' consistent-hash router")
+    ap.add_argument("--aggregator-url", default=None, metavar="URL",
+                    help="fleet aggregator to push canary SLIs to (the "
+                         "stock canary_error_burn/canary_latency/"
+                         "canary_correctness rules judge them there)")
+    ap.add_argument("--probes", required=True, metavar="JSON",
+                    help="path to a JSON file: a list of probe payloads, "
+                         'each {"genes": ..., "additional_parameters": ...}')
+    ap.add_argument("--space-key", default="default",
+                    help="golden-set namespace for this fleet's search space")
+    ap.add_argument("--golden", default=None, metavar="PATH",
+                    help="persist sealed goldens here (JSON; survives "
+                         "canary restarts)")
+    ap.add_argument("--probe-interval", type=float, default=10.0)
+    ap.add_argument("--probe-timeout", type=float, default=30.0)
+    ap.add_argument("--token", default=None, help="broker auth token")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="emit {type: canary_probe} records to the "
+                         "telemetry sink (GENTUN_TPU_TELEMETRY=1 equivalent)")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    args = ap.parse_args(argv)
+
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    if args.telemetry:
+        _tele.enable()
+    try:
+        with open(args.probes) as fh:
+            probes = json.load(fh)
+        if not isinstance(probes, list):
+            raise ValueError("--probes file must hold a JSON list")
+        agg_url = None
+        if args.aggregator_url:
+            from .aggregator import parse_aggregator_url
+
+            agg_url = parse_aggregator_url(args.aggregator_url)
+        daemon = CanaryDaemon(
+            args.broker_urls, probes,
+            space_key=args.space_key,
+            aggregator_url=agg_url,
+            host=args.host, port=args.port,
+            probe_interval=args.probe_interval,
+            probe_timeout=args.probe_timeout,
+            golden_path=args.golden,
+            token=args.token,
+        )
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"canary: {e}")
+    daemon.start()
+    print(f"canary serving on {daemon.url} (/healthz /statusz /canaryz)")
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        daemon.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

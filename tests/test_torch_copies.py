@@ -108,3 +108,45 @@ def test_population_helpers_equal_reference():
                         port_mesh.classify_genome_cost(cost, batch, 1, budget)
                     continue
                 assert port_mesh.classify_genome_cost(cost, batch, 1, budget) == want
+
+
+def test_mesh_host_half_equal_reference():
+    """The dispatch plane's mesh arithmetic: factoring, derived worker
+    capacity (heuristic and override), the ``--mesh`` parser and override
+    store, and the job size class of a wire config."""
+    for n in range(1, 33):
+        for size_class in ref_mesh.SIZE_CLASSES:
+            assert port_mesh.mesh_factor(n, size_class=size_class) == ref_mesh.mesh_factor(
+                n, size_class=size_class)
+            assert port_mesh.host_worker_capacity(n, size_class=size_class) == (
+                ref_mesh.host_worker_capacity(n, size_class=size_class))
+        for pop_size in (1, 3, 20):
+            assert port_mesh.mesh_factor(n, pop_size) == ref_mesh.mesh_factor(n, pop_size)
+        for slots in (1, 2, 3):
+            assert port_mesh.host_worker_capacity(n, slots) == ref_mesh.host_worker_capacity(n, slots)
+        for pop_axis in range(1, n + 1):
+            if n % pop_axis == 0:
+                kw = dict(pop_axis=pop_axis, data_axis=n // pop_axis)
+                assert port_mesh.host_worker_capacity(n, **kw) == ref_mesh.host_worker_capacity(n, **kw)
+    with pytest.raises(ValueError, match="does not factor"):
+        port_mesh.host_worker_capacity(8, pop_axis=3, data_axis=2)
+    for spec in ("4x2", " 1X1 ", "3x", "0x4", "axb", "2x2x2"):
+        try:
+            want = ref_mesh.parse_mesh_spec(spec)
+        except ValueError:
+            with pytest.raises(ValueError):
+                port_mesh.parse_mesh_spec(spec)
+            continue
+        assert port_mesh.parse_mesh_spec(spec) == want
+    port_mesh.set_mesh_override((2, 1))
+    assert port_mesh.get_mesh_override() == (2, 1)
+    port_mesh.set_mesh_override(None)
+    assert port_mesh.get_mesh_override() is None
+    base = dict(nodes=[3, 4, 5], kernels_per_layer=[32, 64, 128], input_shape=[32, 32, 3],
+                n_classes=10, dense_units=256, batch_size=256, compute_dtype="bfloat16")
+    for params in [None, {}, dict(base), dict(base, device_budget=10**12),
+                   dict(base, device_budget=2 * 10**8), dict(base, device_budget=10**7),
+                   dict(base, device_budget=10**3), dict(base, device_budget=10**8, n_classes=None)]:
+        for n_devices in (1, 4):
+            assert port_mesh.job_size_class(params, n_devices) == ref_mesh.job_size_class(
+                params, n_devices)

@@ -1,0 +1,5 @@
+"""The JAX package's ``tests/test_sessions.py``, run against the port's copy."""
+
+from _torch_rerun import load
+
+load(globals(), "test_sessions.py")

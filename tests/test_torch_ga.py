@@ -159,7 +159,11 @@ def test_static_import_guard():
     files = sorted((REPO / "gentun_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "bench_torch.py", REPO / "torch_entry.py",
         *sorted((REPO / "examples").glob("torch_*.py"))]
-    assert len(files) > 30 and (REPO / "examples" / "torch_cifar100_deep.py") in files
+    assert len(files) > 45 and (REPO / "examples" / "torch_cifar100_deep.py") in files
+    distributed = {p.name for p in (REPO / "gentun_tpu_torch" / "distributed").glob("*.py")}
+    assert distributed == {p.name for p in (REPO / "gentun_tpu" / "distributed").glob("*.py")}
+    assert REPO / "gentun_tpu_torch" / "telemetry" / "canary.py" in files
+    assert REPO / "examples" / "torch_distributed_search.py" in files
     jax_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b", re.M)
     reference = re.compile(r"gentun_tpu(?!_torch)")
     for path in files:
