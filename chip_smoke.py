@@ -131,14 +131,42 @@ B. Config #5 under a ``device_budget`` that classifies it ``micro`` with
    fitnesses and ``microbatch_steps_total`` counting; each genome's fitness
    is the same bits alone and routed beside the other; a budget of
    ``param_bytes`` raises ``ValueError``.
+M. The ``(pop, data)`` mesh over ranks and the multi-host worker, after the
+   cache of the phases before is emptied.  Each rank is a process of this
+   script (``--rank``), one ``torch.distributed`` group; two ranks share the
+   one card over gloo, named in the output.  M1: two ranks on a ``(2, 1)``
+   mesh run config #2's pop-20 proxy call at full width (a first call, then
+   a timed one); gate: every fitness equals phase 3's timed call bit for
+   bit on both ranks, each rank launched both kernels.  Prints each rank's
+   slots, warm wall, launches and peak memory, and individuals per hour
+   against phase 3's.  With two cards or more, M1 and M2 run again over
+   NCCL, one rank per card; with one, it prints that NCCL was not run and
+   why.
+   M2: two ranks on a ``(1, 2)`` mesh run phase B's config #5 pair under
+   the budget that routes ``big`` over two ranks (one genome a program,
+   batch 256 as 128 + 128), once with each step and all-reduce timed
+   (synchronised) and once without; gates: the ``big`` class, accuracies
+   within ``M2_ACC_BOUND`` of phase D's pop-2 call of the pair, the params
+   the same bits on both ranks at every fold's eval, one all-reduce a step.
+   Prints the ms a step, the all-reduce's bytes and ms, and the wall
+   against phase B's one-process route of the same budget.  M3: a leader
+   and a follower ``gentun_tpu_torch.distributed.worker`` process
+   (``--coordinator``, ``--num-processes 2``, ``--backend gloo``,
+   ``--capacity 20``) serve one generation of config #4's pop-20 master in
+   this process; gates: the worker advertises 2 cards, every fitness equals
+   phase W's single-process search, and once the leader is SIGKILLed the
+   follower exits with 17 within ``M_KILL_BOUND_S``.  Prints phase M's own
+   seconds.  Then ``[MK]``: both kernels at one rank's shapes in M1 (config
+   #2, P=10, batch 256) and M2 (config #5, P=1, batch 128), as phase K.
 6. A summary line of the run as JSON.
 
 Then the card's ``nvidia-smi`` name and power limit, the
 ``{"kernels": [...]}`` line (each kernel's main-path launches, error and
 per-train-step times at config #2, under ``deep`` the same at config #5
 with the launches of phase D's GA, under ``async`` at P=2 with phase A's
-launches, under ``distributed`` phase W's launches) and, last,
-``{"ok": true, "device": {...}}``.
+launches, under ``distributed`` phase W's launches, under ``mesh`` and
+``mesh_big`` each rank's launches in M1 and M2 with phase MK's times) and,
+last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -437,8 +465,8 @@ def add_per_step(tot, r, n):
     tot["calls"] = tot.get("calls", 0) + n
 
 
-def step_kernels(torch, tag, nodes, filters, slots, dtype, per_step=None):
-    """Every kernel call of one train step (batch 256: forward, input
+def step_kernels(torch, tag, nodes, filters, slots, dtype, per_step=None, batch=256):
+    """Every kernel call of one train step (``batch`` rows: forward, input
     gradient, weight gradient) at each conv shape of the supergraph on
     32×32×3 images, and in bf16 each eval forward (batch 1,024), timed and
     held against the plain version; with ``per_step`` (bf16) the train
@@ -446,10 +474,10 @@ def step_kernels(torch, tag, nodes, filters, slots, dtype, per_step=None):
     rows = []
     for name, shared, c, f, h, n in conv_layers(nodes, filters, 32, 3):
         for role in ("fwd", "wgrad") if shared else ("fwd", "dgrad", "wgrad"):
-            r = conv_case(torch, dtype, role, shared, slots, c, f, 256, h, timed=True)
+            r = conv_case(torch, dtype, role, shared, slots, c, f, batch, h, timed=True)
             r["layer"], r["per_step"] = name, n
             rows.append(r)
-            log(f"[{tag}] {dtype:8s} {role:5s} {name:12s} C={c:3d} F={f:3d} {h}x{h} B=256 P={slots}: "
+            log(f"[{tag}] {dtype:8s} {role:5s} {name:12s} C={c:3d} F={f:3d} {h}x{h} B={batch} P={slots}: "
                 f"err {r['rel_err']:.2e} (tol {r['tol']:.0e}); kernel {r['ms']:.3f} ms, plain "
                 f"{r['plain_ms']:.3f}, cuDNN grouped {r['library_ms']:.3f}, "
                 f"bound {r['bound_ms']:.3f} ms (bytes {r['bound_bytes_ms']:.3f}, operations "
@@ -1051,17 +1079,18 @@ W_GENERATIONS, W2_GENERATIONS = 3, 2
 W_JOIN_S = 300.0
 
 
-def _worker(workdir: str, tag: str, port: int, capacity: int, url: str, env=None, extra=()):
+def _worker(workdir: str, tag: str, port: int, capacity: int, url, env=None, extra=()):
     """Start ``python -m gentun_tpu_torch.distributed.worker`` as a process
-    (never a fork of this one: it holds a CUDA context); its output goes to
+    (never a fork of this one: it holds a CUDA context), with the compile
+    service at ``url`` unless it is None; its output goes to
     ``<workdir>/worker_<tag>.log``."""
     path = os.path.join(workdir, f"worker_{tag}.log")
+    cache = ["--compile-cache-url", url] if url else []
     with open(path, "w") as fh:
         proc = subprocess.Popen(
             [sys.executable, "-m", "gentun_tpu_torch.distributed.worker", "--port", str(port),
              "--species", "genetic-cnn", "--dataset", "cifar10", "--n", str(N_DATA),
-             "--capacity", str(capacity), "--compile-cache-url", url, "--worker-id", f"w-{tag}",
-             *extra],
+             "--capacity", str(capacity), *cache, "--worker-id", f"w-{tag}", *extra],
             cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, **(env or {})),
             stdout=fh, stderr=subprocess.STDOUT)
     return proc, path
@@ -1311,7 +1340,7 @@ def phase_workers(torch, workdir: str, single_rate: float):
         check(n > 0, f"{k} launched for the canary probe")
     check(not counter.convs, f"W3: no library convolution ({counter.convs})")
     result["W3"] = {"probe": probe, "launches": w3_launches}
-    return result, w1_launches, w3_launches
+    return result, w1_launches, w3_launches, local[1]
 
 
 def conv_counter():
@@ -1518,7 +1547,7 @@ def phase_deep(torch, workdir: str):
     check(rerun == 0.0, f"config #5 timed call re-measures the GA's fitnesses: {rerun}")
     check(witness == 0.0, f"config #5 purity at width {len(done[0])} vs 2: {witness}")
     result["purity_max_abs_diff"] = max(rerun, witness)
-    return result, launches, (cap or DEEP_POP), (x, y, pair)
+    return result, launches, (cap or DEEP_POP), (x, y, pair, again)
 
 
 def phase_budget(torch, x, y, pair):
@@ -1569,6 +1598,315 @@ def phase_budget(torch, x, y, pair):
             "microbatch_passes": steps, "purity_max_abs_diff": witness, "wall_s": routed_s}
 
 
+#: Phase M: the (pop, data) mesh over ranks and the multi-host worker.
+#: Seconds a rank cluster may take from spawn to exit, and the follower's
+#: exit bound once its leader is SIGKILLed.
+M_DEADLINE_S = 300.0
+M_KILL_BOUND_S = 15.0
+#: M2's bound on |Δ accuracy| against one process: bf16 training over 19
+#: steps carries the all-reduce's other grouping of the batch's sums (the
+#: dropout stream is the same); the reference holds its sharded CPU run to
+#: 0.06, and the port's own CPU data-axis test to 2/192.
+M2_ACC_BOUND = 0.06
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_ranks(mode: str, world: int, backend: str, workdir: str, extra=()):
+    """Run ``world`` rank processes of this script (``--rank``), one group;
+    each writes ``m_<mode>_<backend>_<rank>.json``.  Fails if a rank fails or
+    outlives ``M_DEADLINE_S``; every rank is killed on the way out."""
+    port, procs = _free_port(), []
+    for r in range(world):
+        path = os.path.join(workdir, f"m_{mode}_{backend}_{r}.log")
+        if os.path.exists(path[:-4] + ".json"):  # an earlier run's
+            os.remove(path[:-4] + ".json")
+        with open(path, "w") as fh:
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", mode, str(r), str(world),
+                 str(port), backend, workdir, *map(str, extra)],
+                cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, LOCAL_RANK=str(r)),
+                stdout=fh, stderr=subprocess.STDOUT), path))
+    deadline = time.monotonic() + M_DEADLINE_S
+    try:
+        for proc, path in procs:
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            with open(path) as fh:
+                text = fh.read()
+            check(rc == 0, f"{mode} rank exit {rc} within {M_DEADLINE_S} s ({path}):\n"
+                           f"{text[-3000:]}")
+    finally:
+        _kill(procs)
+    out = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"m_{mode}_{backend}_{r}.json")) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def _rank_m1(torch):
+    """M1 on one rank: config #2's pop-20 proxy call over the world's mesh."""
+    from gentun_tpu_torch.models.cnn import GeneticCnnModel
+    from gentun_tpu_torch.ops import pop_conv
+    from gentun_tpu_torch.telemetry.registry import get_registry
+
+    x, y = cifar_data()
+    genomes = random_population(NODES, POP, seed=2)
+    t0 = time.monotonic()
+    GeneticCnnModel.cross_validate_population(x, y, genomes, **PROXY)
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats()
+    for k in pop_conv.LAUNCHES:
+        pop_conv.LAUNCHES[k] = 0
+    t0 = time.monotonic()
+    accs = GeneticCnnModel.cross_validate_population(x, y, genomes, **PROXY)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    reg = get_registry()
+    shape = [int(reg.gauge("mesh_pop_axis").value), int(reg.gauge("mesh_data_axis").value)]
+    return {"accs": [float(a).hex() for a in accs], "wall_s": wall, "warm_s": warm_s,
+            "mesh": shape, "slots": POP // shape[0], "launches": dict(pop_conv.LAUNCHES),
+            "peak_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def _rank_m2(torch, budget: str, pair_path: str):
+    """M2 on one rank: phase B's config #5 pair under a budget that routes
+    ``big`` over the world, once instrumented (each step and all-reduce
+    synchronised and timed, the params hashed at each fold's eval), once
+    timed without instrumentation."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from gentun_tpu_torch.models import cnn
+    from gentun_tpu_torch.models.cnn import GeneticCnnModel
+    from gentun_tpu_torch.ops import pop_conv
+    from gentun_tpu_torch.utils.datasets import load_cifar100
+
+    x, y, _ = load_cifar100(n=DEEP_N)
+    with open(pair_path) as fh:
+        pair = json.load(fh)
+    cfg = dict(DEEP, device_budget=int(budget))
+    klass = cnn._genome_size_class(cnn._normalize_config(x, y, cfg))
+    steps, reduces, digests, in_step = [], [], [], [False]
+    real = (cnn._train_step, dist.all_reduce, cnn._eval_fold)
+
+    def step(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0, in_step[0] = time.perf_counter(), True
+        try:
+            real[0](*args, **kwargs)
+            torch.cuda.synchronize()
+        finally:
+            in_step[0] = False
+        steps.append(time.perf_counter() - t0)
+
+    def all_reduce(t, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real[1](t, *args, **kwargs)
+        torch.cuda.synchronize()
+        if in_step[0]:
+            reduces.append((t.numel() * t.element_size(), time.perf_counter() - t0))
+        return out
+
+    def eval_fold(model, *args, **kwargs):
+        h = hashlib.sha256()
+        for _, p in model.named_parameters():
+            h.update(p.detach().float().cpu().numpy().tobytes())
+        digests.append(h.hexdigest())
+        return real[2](model, *args, **kwargs)
+
+    cnn._train_step, dist.all_reduce, cnn._eval_fold = step, all_reduce, eval_fold
+    try:
+        t0 = time.monotonic()
+        first = GeneticCnnModel.cross_validate_population(x, y, pair, **cfg)
+        torch.cuda.synchronize()
+        instrumented_s = time.monotonic() - t0
+    finally:
+        cnn._train_step, dist.all_reduce, cnn._eval_fold = real
+    torch.cuda.reset_peak_memory_stats()
+    for k in pop_conv.LAUNCHES:
+        pop_conv.LAUNCHES[k] = 0
+    t0 = time.monotonic()
+    accs = GeneticCnnModel.cross_validate_population(x, y, pair, **cfg)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return {"class": list(klass), "accs": [float(a).hex() for a in accs],
+            "instrumented_accs": [float(a).hex() for a in first], "wall_s": wall,
+            "instrumented_s": instrumented_s, "step_s": steps, "allreduce": reduces,
+            "fold_param_digests": digests, "launches": dict(pop_conv.LAUNCHES),
+            "peak_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def rank_main(argv) -> int:
+    """One rank of phase M (``chip_smoke.py --rank <m1|m2> RANK WORLD PORT
+    BACKEND WORKDIR [ARGS]``): join the group, run the mode, write its JSON."""
+    import torch
+
+    from gentun_tpu_torch.parallel import multihost
+
+    mode, rank, world, port, backend, workdir = argv[0], *map(int, argv[1:4]), *argv[4:6]
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, backend=backend)
+    try:
+        out = {"m1": _rank_m1, "m2": _rank_m2}[mode](torch, *argv[6:])
+    finally:
+        multihost.shutdown()
+    out.update(rank=rank, device=str(torch.cuda.current_device()))
+    with open(os.path.join(workdir, f"m_{mode}_{backend}_{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def phase_mesh(torch, workdir: str, main_accs, single_rate: float, pair, pair_accs,
+               micro_wall_s: float, local_fitness):
+    """Phase M (see the module docstring).  Returns the result and each
+    rank's kernel launches in M1 and M2."""
+    import signal
+
+    from gentun_tpu_torch import GeneticCnnIndividual
+    from gentun_tpu_torch.distributed import DistributedPopulation
+    from gentun_tpu_torch.parallel.mesh import cnn_genome_cost
+
+    t_phase = time.monotonic()
+    os.makedirs(workdir, exist_ok=True)
+    want = [float(a).hex() for a in main_accs]
+    result = {}
+    cards = torch.cuda.device_count()
+    # M1: the pop axis at full width, two ranks on the one card over gloo
+    # (and one rank per card over NCCL where there are two cards).
+    backends = ["gloo"] + (["nccl"] if cards >= 2 else [])
+    if cards < 2:
+        log(f"[M] NCCL not run: {cards} CUDA card(s) here, and NCCL takes one card per "
+            f"rank; the two ranks share card 0 over gloo")
+    m1_launches = {}
+    for backend in backends:
+        t0 = time.monotonic()
+        ranks = _run_ranks("m1", 2, backend, workdir)
+        wall = max(r["wall_s"] for r in ranks)
+        rate = POP / wall * 3600.0
+        for r in ranks:
+            log(f"[M1 {backend}] rank {r['rank']} (cuda:{r['device']}): mesh "
+                f"{r['mesh'][0]}x{r['mesh'][1]}, {r['slots']} slots, warm call {r['wall_s']:.3f} s "
+                f"(first {r['warm_s']:.3f} s), kernel launches {r['launches']}, peak memory "
+                f"allocated {r['peak_memory_allocated'] / 2**30:.2f} GiB")
+            check(r["mesh"] == [2, 1] and r["slots"] == POP // 2, f"M1 {backend}: a (2, 1) mesh")
+            for k, n in r["launches"].items():
+                check(n > 0, f"M1 {backend}: {k} launched on rank {r['rank']}")
+            check(r["accs"] == want, f"M1 {backend}: rank {r['rank']}'s fitnesses equal phase "
+                                     f"3's timed call bit for bit")
+        log(f"[M1 {backend}] all {POP} fitnesses equal phase 3's on both ranks, bit for bit; "
+            f"warm call {wall:.3f} s, {rate:.1f} individuals/hour (phase 3, one process: "
+            f"{single_rate:.1f}); cluster {time.monotonic() - t0:.1f} s from spawn to exit")
+        result[f"M1_{backend}"] = {"ranks": ranks, "wall_s": wall, "individuals_per_hour": rate,
+                                   "phase3_individuals_per_hour": single_rate}
+        if backend == "gloo":
+            m1_launches = [r["launches"] for r in ranks]
+
+    # M2: the data axis and the big class, phase B's pair on a (1, 2) mesh.
+    cost = cnn_genome_cost(DEEP_NODES, DEEP_FILTERS, (32, 32, 3), DEEP_DENSE, DEEP_CLASSES,
+                           "bfloat16")
+    budget = cost.param_bytes + cost.act_bytes_per_example * 128
+    pair_path = os.path.join(workdir, "m2_pair.json")
+    with open(pair_path, "w") as fh:
+        json.dump([{k: list(map(int, v)) for k, v in g.items()} for g in pair], fh)
+    want2 = np.asarray(pair_accs, dtype=np.float64)
+    for backend in backends:
+        t0 = time.monotonic()
+        ranks = _run_ranks("m2", 2, backend, workdir, (budget, pair_path))
+        for r in ranks:
+            accs = np.asarray([float.fromhex(a) for a in r["accs"]])
+            steps = sorted(r["step_s"])
+            red = r["allreduce"]
+            per_step_bytes = red[0][0] if red else 0
+            log(f"[M2 {backend}] rank {r['rank']} (cuda:{r['device']}): class {r['class']}, "
+                f"fitnesses {np.round(accs, 4).tolist()} (one process: "
+                f"{np.round(want2, 4).tolist()}), |Δ| max {float(np.abs(accs - want2).max()):.4f} "
+                f"(bound {M2_ACC_BOUND}); instrumented call {r['instrumented_s']:.3f} s: "
+                f"{len(steps)} steps, median {1e3 * steps[len(steps) // 2]:.3f} ms a step; "
+                f"{len(red)} all-reduces of {per_step_bytes:,} bytes, median "
+                f"{1e3 * sorted(t for _, t in red)[len(red) // 2]:.3f} ms; timed call "
+                f"{r['wall_s']:.3f} s (one process, phase B's micro route of the same budget: "
+                f"{micro_wall_s:.3f} s); launches {r['launches']}; peak memory allocated "
+                f"{r['peak_memory_allocated'] / 2**30:.2f} GiB")
+            check(r["class"] == ["big", 1], f"M2 {backend}: the budget routes big over 2 ranks: "
+                                            f"{r['class']}")
+            check(r["accs"] == r["instrumented_accs"],
+                  f"M2 {backend}: the instrumented and timed calls agree")
+            check(float(np.abs(accs - want2).max()) <= M2_ACC_BOUND,
+                  f"M2 {backend}: accuracies within {M2_ACC_BOUND} of one process")
+            check(len(red) == len(steps) > 0, f"M2 {backend}: one all-reduce per step")
+            for k, n in r["launches"].items():
+                check(n > 0, f"M2 {backend}: {k} launched on rank {r['rank']}")
+        check(ranks[0]["fold_param_digests"] == ranks[1]["fold_param_digests"]
+              and len(ranks[0]["fold_param_digests"]) == 2 * len(pair),
+              f"M2 {backend}: params equal on both ranks after every fold")
+        log(f"[M2 {backend}] params equal on both ranks at all "
+            f"{len(ranks[0]['fold_param_digests'])} fold evals; cluster "
+            f"{time.monotonic() - t0:.1f} s from spawn to exit")
+        result[f"M2_{backend}"] = {"ranks": ranks, "budget": budget,
+                                   "one_process_accs": list(map(float, pair_accs)),
+                                   "one_process_micro_wall_s": micro_wall_s}
+        if backend == "gloo":
+            m2_launches = [r["launches"] for r in ranks]
+
+    # M3: a leader and a follower worker process serve one generation of
+    # config #4's shape on a (2, 1) mesh; then the leader is SIGKILLed.
+    port = _free_port()
+    procs = []
+    t0 = time.monotonic()
+    with DistributedPopulation(GeneticCnnIndividual, size=POP, seed=0,
+                               additional_parameters=dict(PROXY), host="127.0.0.1", port=0,
+                               evaluate_retries=3, job_timeout=900.0) as pop:
+        for r in range(2):
+            procs.append(_worker(workdir, f"m3_rank{r}", pop.broker_address[1], POP, None,
+                                 env={"LOCAL_RANK": str(r)},
+                                 extra=("--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                                        "2", "--process-id", str(r), "--backend", "gloo")))
+        try:
+            join_s = _await_fleet(pop, procs, 1)
+            chips = pop.broker.fleet_chips()
+            t1 = time.monotonic()
+            pop.evaluate()
+            eval_s = time.monotonic() - t1
+            got = {k: float(v).hex() for k, v in pop.fitness_cache.items()}
+            alive = procs[1][0].poll() is None
+            procs[0][0].send_signal(signal.SIGKILL)
+            t1 = time.monotonic()
+            try:
+                rc = procs[1][0].wait(timeout=M_KILL_BOUND_S + 30.0)
+            except subprocess.TimeoutExpired:
+                rc = None
+            exit_s = time.monotonic() - t1
+        finally:
+            _kill(procs)
+    with open(procs[1][1]) as fh:
+        follower_log = fh.read()
+    log(f"[M3] leader and follower joined in {join_s:.1f} s as one worker of {chips} cards; "
+        f"one generation of {len(got)} genomes in {eval_s:.3f} s; leader SIGKILLed: follower "
+        f"exit code {rc} after {exit_s:.2f} s (bound {M_KILL_BOUND_S} s)")
+    check(chips == 2, f"M3: the worker advertises both ranks' cards ({chips})")
+    check(bool(got) and all(local_fitness.get(k) == v for k, v in got.items()),
+          "M3: every fitness equals the single-process search's, bit for bit")
+    check(alive and rc == 17 and exit_s < M_KILL_BOUND_S,
+          f"M3: the follower exits with 17 within {M_KILL_BOUND_S} s:\n{follower_log[-2000:]}")
+    result["M3"] = {"join_s": join_s, "eval_s": eval_s, "fleet_chips": chips,
+                    "follower_rc": rc, "follower_exit_s": exit_s}
+    result["phase_s"] = time.monotonic() - t_phase
+    log(f"[M] phase M took {result['phase_s']:.1f} s")
+    return result, m1_launches, m2_launches
+
+
 KERNEL_SOURCE = "gentun_tpu_torch/csrc/pop_conv3x3.cu"
 
 
@@ -1588,8 +1926,16 @@ def _bound_by(tot) -> str:
     return "bytes" if tot["bound_bytes_ms"] >= tot["bound_ops_ms"] else "operations"
 
 
+def _sub(tot, extra):
+    """A kernel's per-step numbers in a ``kernels`` sub-entry."""
+    return {"max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "bound_by": _bound_by(tot),
+            "library_ms": tot["library_ms"], **extra}
+
+
 def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
-                 async_per_step, async_launches, worker_launches, canary_launches):
+                 async_per_step, async_launches, worker_launches, canary_launches,
+                 mesh_launches, big_launches, mesh_per_step, big_per_step):
     """The ``{"kernels": [...]}`` record: each kernel's launches on the main
     path (phase 3) and, from phase K, its error against the plain version and
     its times summed over the calls of one config #2 train step (bf16); under
@@ -1597,7 +1943,9 @@ def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
     times), under ``async`` for the steady-state search (phase A's launches,
     its P=2 times), under ``distributed`` the launches of phase W: W1's worker
     process over its search, and the in-process client serving W3's canary
-    probe."""
+    probe; under ``mesh`` and ``mesh_big`` each rank's launches in phase M
+    (M1's timed call over the ``(2, 1)`` mesh, M2's over the ``(1, 2)``
+    mesh) and the kernels' times at one rank's shapes there (phase MK)."""
     where = replaces(KERNEL_SOURCE)
     out = []
     for name, tot in per_step.items():
@@ -1630,8 +1978,71 @@ def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
                 "per": f"config #4: {W_GENERATIONS} generations of pop {POP} served by one "
                        f"worker process (capacity {POP}); the canary's one-genome probe",
             },
+            "mesh": _sub(mesh_per_step[name], {
+                "launches_per_rank": [r[name] for r in mesh_launches],
+                "per": f"phase M1: config #2 pop {POP} over a (2, 1) mesh of two ranks (gloo, "
+                       f"one card), one timed call; times per train step of one rank, bf16, "
+                       f"pop {POP // 2}, batch 256: {mesh_per_step[name]['calls']} calls"}),
+            "mesh_big": _sub(big_per_step[name], {
+                "launches_per_rank": [r[name] for r in big_launches],
+                "per": f"phase M2: config #5's pair routed big over a (1, 2) mesh, one timed "
+                       f"call; times per train step of one rank, bf16, pop 1, batch 128: "
+                       f"{big_per_step[name]['calls']} calls"}),
         })
     return {"kernels": out}
+
+
+def phase_m_main() -> int:
+    """``python3 chip_smoke.py --phase-m``: phase M alone, with its inputs
+    made here: phase 3's pop-20 call, two config #5 genomes (seed 7) with
+    their one-process call and the one-process route of M2's budget, and
+    config #4's pop-20 population evaluated in this process.  On a machine
+    with two cards or more, M1 and M2 run over NCCL too."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 2
+    from gentun_tpu_torch import GeneticCnnIndividual, Population
+    from gentun_tpu_torch.models.cnn import GeneticCnnModel
+    from gentun_tpu_torch.parallel.mesh import cnn_genome_cost
+    from gentun_tpu_torch.utils.datasets import load_cifar10, load_cifar100
+
+    phase_build()
+    name, smi = phase_device(torch)
+    x, y = cifar_data()
+    genomes = random_population(NODES, POP, seed=2)
+    GeneticCnnModel.cross_validate_population(x, y, genomes, **PROXY)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    main_accs = GeneticCnnModel.cross_validate_population(x, y, genomes, **PROXY)
+    torch.cuda.synchronize()
+    rate = POP / (time.monotonic() - t0) * 3600.0
+    log(f"[M] one process, phase 3's call: {POP / rate * 3600.0:.3f} s, "
+        f"{rate:.1f} individuals/hour")
+    x5, y5, _ = load_cifar100(n=DEEP_N)
+    pair = random_population(DEEP_NODES, 2, seed=7)
+    pair_accs = GeneticCnnModel.cross_validate_population(x5, y5, pair, **DEEP)
+    cost = cnn_genome_cost(DEEP_NODES, DEEP_FILTERS, (32, 32, 3), DEEP_DENSE, DEEP_CLASSES,
+                           "bfloat16")
+    budget = cost.param_bytes + cost.act_bytes_per_example * 128
+    t0 = time.monotonic()
+    GeneticCnnModel.cross_validate_population(x5, y5, pair, **DEEP, device_budget=budget)
+    torch.cuda.synchronize()
+    micro_s = time.monotonic() - t0
+    xc, yc, _ = load_cifar10(n=N_DATA)
+    local = Population(GeneticCnnIndividual, x_train=xc, y_train=yc, size=POP, seed=0,
+                       additional_parameters=dict(PROXY))
+    local.evaluate()
+    local_fitness = {k: float(v).hex() for k, v in local.fitness_cache.items()}
+    del x, y, x5, y5, xc, yc, local
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh, _, _ = phase_mesh(torch, os.path.join(REPO, "build", "chip_smoke"), main_accs, rate,
+                            pair, pair_accs, micro_s, local_fitness)
+    log(f"[6] summary: {json.dumps(mesh, default=str)}")
+    print(smi)
+    return 0
 
 
 def main() -> int:
@@ -1658,6 +2069,7 @@ def main() -> int:
     for k in pop_conv.LAUNCHES:
         pop_conv.LAUNCHES[k] = 0
     bf16_calls, main_result = phase_main(torch, x, y, genomes)
+    main_accs = bf16_calls[1]
     launches = dict(pop_conv.LAUNCHES)
     log(f"[3] kernel launches in the three main-path calls: {launches}")
     for k, n in launches.items():
@@ -1672,30 +2084,45 @@ def main() -> int:
     del x, y, genomes, bf16_calls, batches
     gc.collect()
     torch.cuda.empty_cache()
-    workers, worker_launches, canary_launches = phase_workers(
+    workers, worker_launches, canary_launches, local_fitness = phase_workers(
         torch, os.path.join(REPO, "build", "chip_smoke"), main_result["individuals_per_hour"])
     gc.collect()
     torch.cuda.empty_cache()
-    deep, deep_launches, deep_slots, (x5, y5, pair) = phase_deep(
+    deep, deep_launches, deep_slots, (x5, y5, pair, pair_accs) = phase_deep(
         torch, os.path.join(REPO, "build", "chip_smoke"))
     gc.collect()
     torch.cuda.empty_cache()
     deep_per_step = phase_kernels_deep(torch, deep_slots)
     budget = phase_budget(torch, x5, y5, pair)
+    del x5, y5
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh, mesh_launches, big_launches = phase_mesh(
+        torch, os.path.join(REPO, "build", "chip_smoke"), main_accs,
+        main_result["individuals_per_hour"], pair, pair_accs, budget["wall_s"], local_fitness)
+    mesh_per_step = {"pop_conv3x3_fwd": {}, "pop_conv3x3_wgrad": {}}
+    step_kernels(torch, "MK", NODES, FILTERS, POP // 2, "bfloat16", mesh_per_step)
+    log_per_step("MK", f"config #2 (P={POP // 2}, an M1 rank's share)", mesh_per_step)
+    big_per_step = {"pop_conv3x3_fwd": {}, "pop_conv3x3_wgrad": {}}
+    step_kernels(torch, "MK", DEEP_NODES, DEEP_FILTERS, 1, "bfloat16", big_per_step, batch=128)
+    log_per_step("MK", "config #5 (P=1, batch 128, an M2 rank's share)", big_per_step)
     summary = {"main_path": main_result, "launches": launches, "purity_max_abs_diff": purity,
                "differing_grad_leaves": leaves, "executors": executors, "deep": deep,
                "deep_launches": deep_launches, "budget": budget, "async": asynchronous,
-               "workers": workers,
+               "workers": workers, "mesh": mesh,
                "card": smi, "total_s": time.monotonic() - t_start}
     log(f"[6] summary: {json.dumps(summary, default=str)}")
     print(smi)
     print(json.dumps(kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
                                   async_per_step, async_launches, worker_launches,
-                                  canary_launches)))
+                                  canary_launches, mesh_launches, big_launches,
+                                  mesh_per_step, big_per_step)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if "--rank" in sys.argv:
+        sys.exit(rank_main(sys.argv[sys.argv.index("--rank") + 1:]))
+    sys.exit(phase_m_main() if "--phase-m" in sys.argv else main())

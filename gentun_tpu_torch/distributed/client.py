@@ -23,6 +23,7 @@ worker look dead.
 from __future__ import annotations
 
 import logging
+import os
 import socket
 import threading
 import time
@@ -119,8 +120,14 @@ class _ShardConn:
         self.dead = False
 
 
-def _cuda_device_count() -> int:
-    """Local CUDA devices, at least 1 (the fitness path initializes CUDA anyway)."""
+def _cuda_device_count(multihost: bool = False) -> int:
+    """Cards this worker spans, at least 1: a multihost worker's ranks (one
+    card each, as the mesh counts them), else the local CUDA devices (the
+    fitness path initializes CUDA anyway)."""
+    if multihost:
+        from ..parallel import multihost as mh
+
+        return mh.process_count()
     import torch
 
     return max(1, int(torch.cuda.device_count()))
@@ -178,9 +185,13 @@ class GentunClient:
       builds first.  A malformed URL raises ``ValueError`` here (the
       worker CLI converts it to ``SystemExit``); service downtime never
       fails a search, it only costs recompiles.
-    - ``multihost``: one logical worker spanning several processes.  Not
-      ported yet: ``True`` raises ``ValueError``.  One worker process
-      drives one CUDA device.
+    - ``multihost``: this worker is ONE logical worker spanning the ranks of
+      a ``torch.distributed`` group, one process per card
+      (``parallel/multihost.py``; ``initialize`` already called).  Rank 0
+      alone owns the broker connection; every rank runs the same
+      evaluation, with each window of job payloads broadcast to the ranks.
+      Off by default, so a one-card worker (and a host-only species) never
+      touches ``torch.distributed``.
     """
 
     def __init__(
@@ -211,10 +222,6 @@ class GentunClient:
         preemptible: bool = False,
         broker_urls: Optional[list] = None,
     ):
-        if multihost:
-            raise ValueError(
-                "multihost workers are not ported yet: one worker process drives "
-                "one CUDA device; start one worker per card")
         self.species = species
         self.x_train = x_train
         self.y_train = y_train
@@ -238,6 +245,7 @@ class GentunClient:
         # fingerprints stay unchanged — and it is re-validated against the
         # live device count on every capacity derivation (join, remesh).
         self._mesh_override: Optional[tuple] = None
+        self.multihost = bool(multihost)
         if mesh_override is not None:
             from ..parallel.mesh import parse_mesh_spec, set_mesh_override
 
@@ -287,13 +295,17 @@ class GentunClient:
         self._encode_hist = None
         self._encode_samples = 0
         self._n_chips = None if n_chips is None else max(1, int(n_chips))
-        self.multihost = False
         # Worker-side cross-run fitness reuse : the store
         # is loaded ONCE, read-only, and seeds every evaluation Population's
         # fitness cache — cache keys embed additional_parameters, so reuse is
         # training-config-exact.  New measurements accumulate in memory (so a
         # repeated genome later in the same session also hits) but are never
         # written back; persistence stays the master's job.
+        if fitness_store and multihost:
+            # Followers replay the leader's batches; a store file present on
+            # one host but not another would diverge the ranks' programs
+            # mid-collective.  Refuse loudly instead.
+            raise ValueError("fitness_store is not supported for multihost workers")
         if fitness_store:
             from ..utils.fitness_store import load_fitness_cache
 
@@ -314,9 +326,14 @@ class GentunClient:
         # layers read-through/write-behind service access over whatever the
         # local store loaded, so a genome ANY run already measured is
         # answered without training — and every new measurement is
-        # published for the rest of the fleet.
+        # published for the rest of the fleet.  Refused for multihost
+        # workers for the same reason as fitness_store: a service hit on
+        # one host but not another would diverge the ranks' programs
+        # mid-collective.
         self._cache_client = None
         if cache_url:
+            if multihost:
+                raise ValueError("cache_url is not supported for multihost workers")
             from .fitness_service import FitnessServiceClient, ServiceBackedCache
 
             self._cache_client = FitnessServiceClient(cache_url)
@@ -325,9 +342,14 @@ class GentunClient:
         # Fleet-wide compile cache (distributed/compile_service.py):
         # prefetch the fleet's built kernel libraries into the local kernel
         # cache dir at join (and after remesh) so this worker loads instead of
-        # building, and publish the library if it builds it first.
+        # building, and publish the library if it builds it first.  Refused
+        # for multihost workers: the cache dir is per host, so the leader
+        # cannot prefetch for its followers.
         self._compile_client = None
         if compile_cache_url:
+            if multihost:
+                raise ValueError(
+                    "compile_cache_url is not supported for multihost workers")
             from .compile_service import CompileServiceClient
 
             self._compile_client = CompileServiceClient(
@@ -343,6 +365,14 @@ class GentunClient:
 
             self._aggregator_url = parse_aggregator_url(aggregator_url)
         self._pusher = None
+        if self.multihost:
+            from ..parallel import multihost as mh
+
+            self._mh = mh
+            self._is_leader = mh.is_leader()
+        else:
+            self._mh = None
+            self._is_leader = True
 
         self._sock: Optional[socket.socket] = None
         self._rfile = None
@@ -370,6 +400,13 @@ class GentunClient:
             addrs = parse_broker_urls(broker_urls)
             self.host, self.port = addrs[0]
             if len(addrs) > 1:
+                if self.multihost:
+                    # One leader connection is the multihost contract:
+                    # followers replay ITS batches; two shards' interleaved
+                    # windows would diverge the ranks' programs.
+                    raise ValueError(
+                        "broker_urls multi-homing is not supported for "
+                        "multihost workers")
                 if self._injector is not None:
                     # Frame-counted fault schedules assume one connection;
                     # shard chaos drills kill brokers instead (chaos_run.py
@@ -390,9 +427,10 @@ class GentunClient:
         zero padding and is already in the compile cache after the first
         window.  ``n_devices=None`` probes ``torch.cuda.device_count()``
         (the local CUDA devices; 1 when there is none, so a worker without a
-        card still joins and then fails its jobs with the device error),
-        which requires a device species; tests and host-only species pass
-        the count explicitly.  Records the shape for the hello/advertise
+        card still joins and then fails its jobs with the device error), or
+        a multihost worker's world size (one card per rank), which requires
+        a device species; tests and host-only species pass the count
+        explicitly.  Records the shape for the hello/advertise
         frames, the re-chunker, and the ``mesh_*`` gauges.
         """
         from ..parallel.mesh import host_worker_capacity
@@ -403,7 +441,7 @@ class GentunClient:
                     f"capacity='auto' derives from the local device mesh, but "
                     f"species {self.species.__name__} never uses the CUDA "
                     f"device — pass mesh_devices= or an integer capacity")
-            n_devices = _cuda_device_count()
+            n_devices = _cuda_device_count(self.multihost)
         pop_o, data_o = self._mesh_override or (None, None)
         capacity, pop_axis, data_axis = host_worker_capacity(
             n_devices, pop_axis=pop_o, data_axis=data_o)
@@ -460,14 +498,15 @@ class GentunClient:
         The master divides its throughput metric by the connected fleet's
         chip total (``individuals/hour/chip`` — SURVEY.md §5 "Metrics"), so
         the advertisement must be honest: a device species reports
-        ``torch.cuda.device_count()`` (at least 1).  Species that never
+        ``torch.cuda.device_count()`` (at least 1), or a multihost worker's
+        world size (one card per rank).  Species that never
         touch the card (``uses_jax`` False: the flag keeps the reference's
         name) report 1 and never initialize CUDA here.  Override with the
         ``n_chips`` constructor kwarg.
         """
         if self._n_chips is None:
             if getattr(self.species, "uses_jax", False):
-                self._n_chips = _cuda_device_count()
+                self._n_chips = _cuda_device_count(self.multihost)
             else:
                 self._n_chips = 1
         return self._n_chips
@@ -791,7 +830,16 @@ class GentunClient:
 
         Returns the number of jobs completed (useful for tests); runs until
         ``stop_event`` is set or ``max_jobs`` results have been sent.
+
+        Multi-host mode: rank 0 runs this loop against the broker and
+        broadcasts each received window; the other ranks never touch the
+        socket: they loop on the broadcast and run the same evaluation,
+        keeping every rank's collectives in lockstep.  A ``None`` broadcast
+        is the shutdown sentinel, sent when the leader's loop exits for any
+        reason.
         """
+        if self.multihost and not self._is_leader:
+            return self._work_follower()
         stop = stop_event or threading.Event()
         self._work_stop = stop  # shutdown() handle for signal-driven exits
         self._stop = threading.Event()
@@ -846,6 +894,8 @@ class GentunClient:
 
                 release_pusher(self._pusher)
                 self._pusher = None
+            if self.multihost:
+                self._mh.broadcast_payload(None)  # release the followers
         return self._jobs_done
 
     def _work_single(self, stop: threading.Event, max_jobs: Optional[int],
@@ -1144,6 +1194,37 @@ class GentunClient:
                     self.worker_id, len(unstarted_job_ids),
                     f" to shard {conn.shard}" if conn is not None else "")
 
+    def _work_follower(self) -> int:
+        """Ranks other than 0: evaluate what the leader broadcasts, reply never.
+
+        The return value counts EVALUATIONS PERFORMED on this rank, which
+        can exceed the leader's completed-job count when a connection drop
+        makes the broker redeliver a window (followers evaluate it twice,
+        the leader replies once).  ``max_jobs`` does not apply here: the
+        leader decides when the worker is done, with the shutdown sentinel.
+        A leader that dies without sending it (SIGKILL, OOM) ends this rank
+        with code 17: by the watchdog within ~10 s, or as soon as the
+        leader's store port is gone after a collective fails.
+        """
+        self._jobs_done = 0
+        watchdog_stop = self._mh.start_leader_watchdog()
+        try:
+            while True:
+                try:
+                    jobs = self._mh.broadcast_payload(None)
+                    if jobs is None:
+                        return self._jobs_done
+                    self._evaluate_batch(jobs)
+                except Exception:
+                    if self._mh.leader_gone():
+                        logger.error("a collective failed and the leader's store port is "
+                                     "gone; follower rank %d exiting with code 17",
+                                     self._mh.process_index())
+                        os._exit(17)
+                    raise
+        finally:
+            watchdog_stop.set()
+
     def _consume(self, stop: threading.Event, max_jobs: Optional[int]) -> None:
         if self.prefetch_depth == 0:
             self._consume_serial(stop, max_jobs)
@@ -1175,6 +1256,10 @@ class GentunClient:
             # (Batches near the protocol size cap arrive split into several
             # frames, trained one frame per loop iteration — see protocol.py.)
             jobs = self._await_jobs()
+            if self.multihost:
+                # Ship the window to every rank BEFORE evaluating: all ranks
+                # must enter the same evaluation, and its collectives, together.
+                self._mh.broadcast_payload(jobs)
             self._evaluate_batch(jobs)
 
     def _consume_pipelined(self, stop: threading.Event, max_jobs: Optional[int]) -> None:
@@ -1257,6 +1342,10 @@ class GentunClient:
             if isinstance(item, BaseException):
                 raise item
             jobs = item
+            if self.multihost:
+                # Ship the window to every rank BEFORE evaluating: all ranks
+                # must enter the same evaluation, and its collectives, together.
+                self._mh.broadcast_payload(jobs)
             self._evaluate_batch(jobs)
             self._send({"type": "ready", "credit": len(jobs)})
 
@@ -1511,7 +1600,7 @@ class GentunClient:
                         entry["session"] = job["session"]
                     entries.append(entry)
                     self._jobs_done += 1
-                if entries:
+                if self._is_leader and entries:
                     # The whole capacity window acks as ONE `results` frame
                     # (protocol.coalesce_results) instead of a TCP frame per
                     # job — the worker-side half of the batched-dispatch
@@ -1532,6 +1621,10 @@ class GentunClient:
                 logger.exception("batch evaluation failed")
                 for job in ok_jobs:
                     self._try_send_fail(job["job_id"], f"evaluate: {e!r}")
+                if self.multihost:
+                    # The ranks may have parted mid-collective: the jobs are
+                    # requeued above, and the worker stops on every rank.
+                    raise
         self._last_batch_end = time.monotonic()
         if self._compile_client is not None:
             # Publish-after-first-compile for every species (the models-
@@ -1569,6 +1662,8 @@ class GentunClient:
         return None
 
     def _try_send_fail(self, job_id: str, reason: str) -> None:
+        if not self._is_leader:
+            return  # follower ranks hold no connection; the leader reports
         try:
             msg = {"type": "fail", "job_id": job_id, "reason": reason[:2000]}
             if self._boot_id is not None:

@@ -9,12 +9,12 @@ it consumes jobs until killed:
         --host <master-ip> --port 5672 --password s3cret \
         --species genetic-cnn --dataset mnist --capacity 8
 
-One worker process drives one CUDA device: ``--capacity N`` is the window
+A worker process drives one CUDA device: ``--capacity N`` is the window
 of jobs it trains as one population-batched program (20 for a pop-20
 generation in one program; the default 1 runs a genome per program, at the
 launch floor of a 2-slot program).  ``--capacity auto`` derives the window
-from the local device mesh, which on one card is ``1x1`` (window 2);
-``--mesh`` accepts only ``1x1`` until the multi-GPU evaluator is ported.
+from the worker's ``(pop, data)`` mesh, which on one card is ``1x1``
+(window 2).
 
 All model hyperparameters (``additional_parameters``) arrive from the
 master with each job, so the worker needs only its species and its copy of
@@ -26,8 +26,25 @@ instead of training a wrong-schedule measurement — a mixed-version fleet
 degrades to per-job refusals, never to silent rung poisoning.  Tagless
 jobs from pre-ladder masters evaluate unchanged.
 
-Multi-host workers (``--coordinator``, ``--num-processes``,
-``--process-id``) are not ported yet: the flags exit with a message.
+One worker over several cards, on one host or many: start this command
+once per card, each with the same ``--coordinator`` (rank 0's host and a
+free port) and ``--num-processes``, and its own ``--process-id``:
+
+    # on each host, once per card, RANK = 0 .. N-1 (LOCAL_RANK picks the card)
+    LOCAL_RANK=$LOCAL python -m gentun_tpu_torch.distributed.worker \
+        --host <master-ip> --password s3cret \
+        --species genetic-cnn --dataset cifar10 --capacity auto \
+        --coordinator <rank0-host>:29500 --num-processes N --process-id $RANK
+
+The ranks form one ``torch.distributed`` group over NCCL (``parallel/
+multihost.py``); ranks that share a card run over ``--backend gloo``.  Rank 0
+connects to the master and broadcasts each window of jobs to the other
+ranks; every rank trains its share of the ``(pop, data)`` mesh
+(``--mesh POPxDATA`` pins a factoring of the N ranks).  The followers exit
+when the leader's loop ends (a shutdown sentinel rides the last broadcast).
+If the leader is killed outright, each follower's watchdog sees its store
+port gone and exits with code 17 within ~10 s: restart the command on every
+rank together.  The master needs no action: unacked jobs redeliver.
 
 A worker that finds no CUDA device still joins, and fails each job it
 takes with the device error (a ``fail`` frame the master retries
@@ -126,10 +143,11 @@ def main(argv=None) -> int:
                          "pop-axis size) instead of a typed-in number — "
                          "see DISTRIBUTED.md 'Host-level mesh workers'")
     ap.add_argument("--mesh", default=None, metavar="POPxDATA",
-                    help="pin the (pop, data) device-mesh factoring.  One "
-                         "worker drives one CUDA device, so only 1x1 is "
-                         "accepted until the multi-GPU evaluator is ported; "
-                         "anything else exits loudly.")
+                    help="pin the (pop, data) factoring of the worker's ranks "
+                         "(one per card) instead of the heuristic, e.g. --mesh "
+                         "2x2 over --num-processes 4.  The axes must multiply "
+                         "to the number of ranks (1 without --coordinator); "
+                         "malformed or non-factoring values exit loudly.")
     ap.add_argument("--prefetch-depth", type=int, default=None,
                     help="jobs queued locally BEYOND capacity so the next "
                          "window is decoded while the current one trains "
@@ -145,14 +163,16 @@ def main(argv=None) -> int:
     ap.add_argument("--fitness-store", default=None,
                     help="read-only cross-run fitness cache (utils/fitness_store.py "
                          "JSON): jobs whose genes+config were measured by a prior "
-                         "run are answered without retraining.")
+                         "run are answered without retraining.  Not available with "
+                         "--coordinator (multihost) — see GentunClient.")
     ap.add_argument("--cache-url", default=None, metavar="URL",
                     help="shared fitness-memoization service "
                          "(distributed/fitness_service.py), e.g. "
                          "http://cache-host:9736: look up each job's genes+"
                          "config before training and publish fresh fitnesses "
                          "back (write-behind).  Layers OVER --fitness-store; "
-                         "degrades to local-only when unreachable.")
+                         "degrades to local-only when unreachable.  Not "
+                         "available with --coordinator (multihost).")
     ap.add_argument("--compile-cache-url", default=None, metavar="URL",
                     help="fleet-wide kernel-library cache service "
                          "(distributed/compile_service.py), e.g. "
@@ -162,7 +182,8 @@ def main(argv=None) -> int:
                          "run), and publish it if this worker builds it "
                          "first (write-behind).  Degrades to local builds "
                          "when unreachable.  The library is native code: "
-                         "use only a compile service you trust.")
+                         "use only a compile service you trust.  Not "
+                         "available with --coordinator (multihost).")
     ap.add_argument("--aggregator-url", default=None, metavar="URL",
                     help="fleet metrics aggregator "
                          "(telemetry/aggregator.py), e.g. "
@@ -208,11 +229,19 @@ def main(argv=None) -> int:
                          "bind a routable address only on a trusted network "
                          "— the endpoints are unauthenticated)")
     mh = ap.add_argument_group(
-        "multi-host", "one logical worker across several processes: not ported "
-        "yet, these flags exit with a message")
-    mh.add_argument("--coordinator", default=None, metavar="HOST:PORT")
-    mh.add_argument("--num-processes", type=int, default=None)
-    mh.add_argument("--process-id", type=int, default=None)
+        "multi-host",
+        "run ONE logical worker as several processes, one per card, on one "
+        "host or many.  Launch this command once per card with the same "
+        "--coordinator and --num-processes and its own --process-id; rank 0 "
+        "talks to the master, the others join its evaluations.")
+    mh.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="rank 0's host and a free port (its TCP store)")
+    mh.add_argument("--num-processes", type=int, default=None,
+                    help="ranks in the worker (one per card)")
+    mh.add_argument("--process-id", type=int, default=None, help="this process's rank")
+    mh.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="collective backend (default nccl, which needs a card per "
+                         "rank; ranks that share a card must ask for gloo)")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
 
@@ -244,10 +273,6 @@ def main(argv=None) -> int:
             args.mesh = parse_mesh_spec(args.mesh)
         except ValueError as e:
             raise SystemExit(f"--mesh: {e}")
-        if args.mesh != (1, 1):
-            raise SystemExit(
-                f"--mesh: {args.mesh[0]}x{args.mesh[1]} is not available: one worker "
-                "drives one CUDA device (1x1) until the multi-GPU evaluator is ported")
     if args.prefetch_depth is not None and args.prefetch_depth < 0:
         raise SystemExit(f"--prefetch-depth must be >= 0, got {args.prefetch_depth}")
     if args.preempt_after is not None:
@@ -289,10 +314,38 @@ def main(argv=None) -> int:
         logging.getLogger("gentun_tpu_torch.distributed").info(
             "ops plane serving on %s (/metrics /healthz /statusz /debugz/flight)",
             ops.url)
-    if (args.coordinator is not None or args.num_processes is not None
-            or args.process_id is not None):
-        raise SystemExit("--coordinator/--num-processes/--process-id: multi-host "
-                         "workers are not ported yet; run one worker per card")
+    if (args.num_processes is not None or args.process_id is not None
+            or args.backend is not None) and args.coordinator is None:
+        raise SystemExit("--num-processes/--process-id/--backend require --coordinator")
+    multihost = args.coordinator is not None
+    if multihost and args.fitness_store:
+        raise SystemExit("--fitness-store is not supported with --coordinator "
+                         "(a store present on one host but not another would "
+                         "diverge the ranks' evaluations)")
+    if multihost and args.cache_url:
+        raise SystemExit("--cache-url is not supported with --coordinator "
+                         "(same rank-divergence hazard as --fitness-store: a "
+                         "cache hit on one host but not another would skip "
+                         "training on some ranks only)")
+    if multihost and args.compile_cache_url:
+        raise SystemExit("--compile-cache-url is not supported with "
+                         "--coordinator (the kernel cache dir is per host, so "
+                         "the leader cannot prefetch for its followers)")
+    if multihost and (args.num_processes is None or args.process_id is None):
+        raise SystemExit("--coordinator requires --num-processes and --process-id")
+    world = 1
+    if multihost:
+        from ..parallel import multihost as mh_mod
+
+        try:
+            mh_mod.initialize(args.coordinator, args.num_processes, args.process_id,
+                              backend=args.backend)
+        except ValueError as e:
+            raise SystemExit(f"--coordinator: {e}")
+        world = mh_mod.process_count()
+    if args.mesh is not None and args.mesh[0] * args.mesh[1] != world:
+        raise SystemExit(f"--mesh: {args.mesh[0]}x{args.mesh[1]} does not factor the "
+                         f"worker's {world} rank(s) (one per card; --num-processes)")
     x, y, meta = _load_dataset(args.dataset, data_dir=args.data_dir, n=args.n)
     logging.getLogger("gentun_tpu_torch.distributed").info(
         "worker data: %s (%d examples, synthetic=%s)", meta.get("source", args.dataset),
@@ -324,6 +377,7 @@ def main(argv=None) -> int:
             prefetch_depth=args.prefetch_depth,
             mesh_override=args.mesh,
             worker_id=args.worker_id,
+            multihost=multihost,
             n_chips=args.n_chips,
             fitness_store=args.fitness_store,
             cache_url=args.cache_url,
@@ -336,9 +390,8 @@ def main(argv=None) -> int:
                          if args.broker_urls else None),
         )
     except ValueError as e:
-        # Config errors the CLI could not pre-validate — notably a --mesh
-        # override that does not factor the probed device count (only
-        # known here).  Exit loudly instead of surfacing a traceback.
+        # Config errors the CLI could not pre-validate.  Exit loudly
+        # instead of surfacing a traceback.
         raise SystemExit(str(e))
     # Elastic-fleet exit protocol (DISTRIBUTED.md "Elastic fleet"): first
     # SIGTERM/SIGINT asks for an orderly drain — finish the window being
@@ -404,6 +457,9 @@ def main(argv=None) -> int:
     if torch.cuda.is_initialized():
         usage["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
         usage["peak_memory_reserved"] = torch.cuda.max_memory_reserved()
+    if multihost:
+        usage["rank"] = mh_mod.process_index()
+        mh_mod.shutdown()
     logging.getLogger("gentun_tpu_torch.distributed").info(
         "worker exiting after %d job(s); %s", done, json.dumps(usage))
     return 0

@@ -39,10 +39,23 @@ fitness = mean validation accuracy.  How it runs differs:
   learned cap=1 route of ``_chunked_by_cap`` runs unpadded, still at the
   same per-slot shapes).
 
+Several cards run one evaluation as the ranks of a ``torch.distributed``
+group, one process per card (``parallel/multihost.py``), laid out as a
+``(pop, data)`` mesh (``parallel/mesh.py``).  Each pop row trains its own
+slice of the (padded) population with no communication, so by the purity
+above its fitnesses are the one-process bits.  The ranks of a row split
+every step's batch: each divides its genomes' losses by the whole batch,
+draws each genome's full-batch dropout mask and keeps its own rows (the
+one-process stream), and one ``all_reduce`` of the flattened gradients over
+the row's group precedes the SGD update, which leaves the params equal on
+every rank of the row.  Eval deals whole validation batches out over the
+row's ranks and sums the hit counts, which is exact.  Every rank ends with
+the whole ``(kfold, P)`` accuracy table (``multihost.fetch``).
+
 A ``device_budget`` that the cost model says one genome's program cannot
-fit routes the batch one genome per call with gradient accumulation (the
-``micro`` size class).  Left out of this slice (it raises
-``NotImplementedError`` where a knob asks for it): multi-device placement.
+fit routes the batch one genome per call: the ``big`` class spreads that
+batch over every rank of a ``(1, world)`` mesh, and the ``micro`` class adds
+gradient accumulation.
 """
 
 from __future__ import annotations
@@ -63,12 +76,17 @@ from torch import nn
 
 from ..ops.dag import stack_genome_masks
 from ..ops.pop_conv import PopConv3x3Fn
+from ..parallel import multihost
 from ..parallel.mesh import (
     SIZE_SMALL,
+    Mesh,
+    auto_mesh,
     classify_genome_cost,
     cnn_genome_cost,
+    mesh_axis_sizes,
     pad_population,
     pop_bucket,
+    shard_cv_args,
 )
 from ..telemetry import lineage as _lineage
 from ..telemetry import spans as _tele
@@ -196,9 +214,13 @@ class MaskedGeneticCnn(nn.ModuleDict):
         x: torch.Tensor,
         masks: Masks,
         dropout_gens: Optional[Sequence[torch.Generator]] = None,
+        batch_rows: Optional[Tuple[int, int, int]] = None,
     ) -> torch.Tensor:
         """Logits ``(P, B, n_classes)``; dropout runs only when ``dropout_gens``
-        (one generator per genome, on ``x``'s device) is given."""
+        (one generator per genome, on ``x``'s device) is given.  ``batch_rows``
+        ``(lo, hi, n)`` says ``x`` holds rows ``[lo, hi)`` of a batch of ``n``
+        (a data-axis shard): dropout then draws the whole batch's mask and
+        keeps those rows."""
         dtype = self.compute_dtype
         pop, b = self.pop, x.shape[0]
         x = x.to(dtype)
@@ -234,24 +256,31 @@ class MaskedGeneticCnn(nn.ModuleDict):
         x = x.reshape(b, pop, -1).transpose(0, 1)
         x = F.relu(self["Dense_0"](x, dtype))
         if dropout_gens is not None:
-            x = _dropout(x, self.dropout_rate, dropout_gens)
+            x = _dropout(x, self.dropout_rate, dropout_gens, batch_rows)
         # Final projection + logits in float32, as the reference does.
         return self["Dense_1"](x.float(), torch.float32)
 
 
-def _dropout(x: torch.Tensor, rate: float, gens: Sequence[torch.Generator]) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, gens: Sequence[torch.Generator],
+             batch_rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """flax ``nn.Dropout`` semantics with one random stream per genome.
 
     ``x`` is ``(P, B, U)``; genome ``p`` draws its own ``(B, U)`` keep mask
     from ``gens[p]``, so its draws never depend on P, its slot or padding.
+    With ``batch_rows = (lo, hi, n)`` it draws the ``(n, U)`` mask of the
+    whole batch and keeps rows ``[lo, hi)``: a data shard sees the mask one
+    process would.
     """
     if rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
+    shape, rows = x.shape[1:], slice(None)
+    if batch_rows is not None:
+        shape, rows = (batch_rows[2], *x.shape[2:]), slice(batch_rows[0], batch_rows[1])
     keep = torch.stack(
-        [torch.rand(x.shape[1:], generator=g, device=x.device) < keep_prob for g in gens]
+        [(torch.rand(shape, generator=g, device=x.device) < keep_prob)[rows] for g in gens]
     )
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -327,11 +356,16 @@ def _lr_schedule(
     return schedule
 
 
-def _per_genome_loss(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Softmax cross-entropy, mean over the batch, one value per genome."""
+def _per_genome_loss(logits: torch.Tensor, y: torch.Tensor,
+                     batch: Optional[int] = None) -> torch.Tensor:
+    """Softmax cross-entropy, mean over the batch, one value per genome; a
+    data shard passes the whole ``batch`` it is a share of and gets its
+    share of that mean (the shares sum to it)."""
     pop, b, n_classes = logits.shape
     ce = F.cross_entropy(logits.reshape(pop * b, n_classes), y.repeat(pop), reduction="none")
-    return ce.view(pop, b).mean(dim=1)
+    if batch is None:
+        return ce.view(pop, b).mean(dim=1)
+    return ce.view(pop, b).sum(dim=1) / batch
 
 
 def _train_step(
@@ -346,6 +380,8 @@ def _train_step(
     momentum: float,
     nesterov: bool,
     microbatch: int = 1,
+    batch_rows: Optional[Tuple[int, int, int]] = None,
+    data_group=None,
 ) -> None:
     """One SGD step for all genomes, ``optax.sgd`` arithmetic.
 
@@ -355,14 +391,26 @@ def _train_step(
     update (dropout then draws per slice).  Momentum: ``t = g + m·t``; the
     update is ``t`` (or ``g + m·t`` with nesterov), scaled by ``-lr`` and
     added to the param.  Params and momentum buffers update in place.
+
+    On a data axis ``idx`` holds this rank's rows ``batch_rows = (lo, hi,
+    n)`` of each micro-slice of ``n``: each loss is divided by ``n``, and the
+    flattened gradients are summed over ``data_group`` in one ``all_reduce``
+    before the update, so every rank of the row applies the same bits.
     """
     params = list(model.parameters())
     grads: Optional[List[torch.Tensor]] = None
+    whole = None if batch_rows is None else batch_rows[2]
     for im in idx.view(microbatch, -1):
-        logits = model(x_full.index_select(0, im), masks, dropout_gens=gens)
-        loss = _per_genome_loss(logits, y_full.index_select(0, im)).sum()
+        logits = model(x_full.index_select(0, im), masks, dropout_gens=gens, batch_rows=batch_rows)
+        loss = _per_genome_loss(logits, y_full.index_select(0, im), whole).sum()
         g = torch.autograd.grad(loss, params)
         grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
+    if data_group is not None:
+        import torch.distributed as dist
+
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=data_group)
+        grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
     with torch.no_grad():
         for p, g, t in zip(params, grads, momentum_bufs):
             if microbatch > 1:
@@ -381,18 +429,29 @@ def _eval_fold(
     val_idx: torch.Tensor,
     val_weight: torch.Tensor,
     eval_batch_size: int,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Weighted validation accuracy per genome, ``(P,)`` float32, on device.
 
     ``argmax`` takes the first maximum, as ``jnp.argmax`` does; padded rows
-    carry weight 0.
+    carry weight 0.  On a data axis the row's ranks take every ``data``-th
+    eval batch (each batch the shape it has in one process) and sum their
+    hit counts over the row's group: whole numbers, so the sum is exact.
     """
     correct = torch.zeros(model.pop, dtype=torch.float32, device=x_full.device)
-    for start in range(0, val_idx.shape[0], eval_batch_size):
+    starts = range(0, val_idx.shape[0], eval_batch_size)
+    group = None if mesh is None else mesh.data_group
+    if group is not None:
+        starts = starts[mesh.col::mesh.shape["data"]]
+    for start in starts:
         idx = val_idx[start : start + eval_batch_size]
         logits = model(x_full.index_select(0, idx), masks)
         hits = (logits.argmax(dim=-1) == y_full.index_select(0, idx)).float()
         correct += (hits * val_weight[start : start + eval_batch_size]).sum(dim=1)
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(correct, group=group)
     return correct / val_weight.sum().clamp(min=1.0)
 
 
@@ -498,6 +557,8 @@ def _run_segmented(
     eval_batch_size: int,
     domain: int = 0,
     warm_keys: Optional[np.ndarray] = None,
+    mesh: Optional[Mesh] = None,
+    batch_rows: Optional[Tuple[int, int, int]] = None,
 ) -> np.ndarray:
     """Host loop over folds × segments of train steps; returns (kfold, P) accs.
 
@@ -507,6 +568,11 @@ def _run_segmented(
     fold's accuracies stay on the device until every fold is queued.  With
     ``warm_keys`` (the real genomes' hashes) fold 0's trained params go into
     the warm-start bank.
+
+    On a ``mesh`` the inputs are this rank's share (``shard_cv_args``:
+    ``batch_rows`` says which rows of each batch it holds); the steps
+    all-reduce over the row's group, and every rank returns the whole
+    ``(kfold, P)`` table, gathered from each row's first rank.
     """
     device = x_full.device
     kfold, total_steps = batch_idx.shape[0], batch_idx.shape[1]
@@ -514,6 +580,7 @@ def _run_segmented(
     bounds = _segment_bounds(total_steps, cfg["segment_steps"])
     microbatch = int(cfg["microbatch"])
     dropout = cfg["dropout_rate"] > 0.0
+    data_group = None if mesh is None else mesh.data_group
     tele = _tele.enabled()
     named = dict(model.named_parameters())
     _check_initial_params(named, params, kfold)
@@ -532,18 +599,22 @@ def _run_segmented(
                     _train_step(
                         model, masks, x_full, y_full, bidx[t], gens, momentum_bufs,
                         lr_at(t), cfg["momentum"], cfg["nesterov"], microbatch,
+                        batch_rows, data_group,
                     )
                 if tele:
                     _device_span("train", t0, device, {"steps": e - s, "pop": model.pop, "fold": f})
             t0 = time.monotonic()
             vi = torch.as_tensor(val_idx[f], device=device)
             vw = torch.as_tensor(val_weight[f], device=device)
-            accs.append(_eval_fold(model, masks, x_full, y_full, vi, vw, eval_batch_size))
+            accs.append(_eval_fold(model, masks, x_full, y_full, vi, vw, eval_batch_size, mesh))
             if tele:
                 _device_span("eval", t0, device, {"pop": model.pop, "fold": f})
         if f == 0 and warm_keys is not None:
             _warm_bank_deposit(model, warm_keys)
-    return torch.stack(accs).cpu().numpy().astype(np.float32)
+    out = torch.stack(accs).cpu()
+    if mesh is not None:
+        return multihost.fetch(out, ranks=mesh.row_leaders, dim=1).astype(np.float32)
+    return out.numpy().astype(np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -752,6 +823,9 @@ def _device_dataset(key_x, key_y, xp: np.ndarray, yp: np.ndarray, perm: np.ndarr
     Keyed by the identity of the CALLER's arrays plus a strided content
     fingerprint, so a GA pays the upload once per search, and a caller that
     mutates its arrays in place near-certainly misses the cache.  LRU of 4.
+    On a mesh every rank holds the whole dataset (the data axis splits the
+    batches' indices, not the rows): each rank uploads it once to its own
+    card, the device in the key.
     """
     key = (
         id(key_x),
@@ -886,11 +960,20 @@ def _chunked_by_cap(run, genomes, cap_key, run_exact=None):
     return _chunked_by_cap(run, genomes, cap_key, run_exact)
 
 
+def _mesh_devices(spec) -> int:
+    """Cards an evaluation of mesh ``spec`` spreads over: a :class:`Mesh`'s
+    ranks, else the world's (1 for one process)."""
+    if isinstance(spec, Mesh):
+        return spec.shape["pop"] * spec.shape["data"]
+    return multihost.process_count()
+
+
 def _genome_size_class(cfg: Dict[str, Any]) -> Tuple[str, int]:
     """(size_class, microbatch) for this config against its device budget.
 
-    No budget configured → the wide-pop path.  The port runs on one device,
-    so the cost model is classified for one.
+    No budget configured → the wide-pop path.  The cost model is classified
+    for the cards the evaluation spreads over: one process classifies for
+    one card, where ``big`` cannot occur.
     """
     budget = cfg.get("device_budget")
     if not budget:
@@ -904,13 +987,22 @@ def _genome_size_class(cfg: Dict[str, Any]) -> Tuple[str, int]:
         cfg["compute_dtype"],
         bool(cfg["stage_exit_conv"]),
     )
-    return classify_genome_cost(cost, int(cfg["batch_size"]), 1, int(budget))
+    return classify_genome_cost(
+        cost, int(cfg["batch_size"]), _mesh_devices(cfg["mesh"]), int(budget))
 
 
-def _fit_microbatch(cfg: Dict[str, Any], batch_size: int, steps: int) -> None:
-    """Clamp ``cfg['microbatch']`` to the actual step batch and bump it to the
-    next divisor, so the accumulation split is always exact; count the
-    micro-gradient passes when accumulation is active."""
+def _account_sharded_batch(cfg: Dict[str, Any], mesh: Optional[Mesh], batch_size: int,
+                           steps: int) -> None:
+    """Fit the microbatch factor to the ACTUAL step batch and account waste.
+
+    - ``cfg['microbatch']`` is clamped to the batch and bumped to the next
+      divisor, so the accumulation split is always exact;
+    - ``microbatch_steps_total`` counts the micro-gradient passes this
+      evaluation will run (train steps × factor) when accumulation is on;
+    - ``eval_data_pad_waste_total`` counts the batch slots a data axis
+      that does not divide the batch leaves idle per step (the shares then
+      differ by one row), summed over the evaluation's steps.
+    """
     micro = int(cfg.get("microbatch", 1) or 1)
     if micro > 1:
         micro = min(micro, batch_size)
@@ -918,6 +1010,10 @@ def _fit_microbatch(cfg: Dict[str, Any], batch_size: int, steps: int) -> None:
             micro += 1
         cfg["microbatch"] = micro
         _get_registry().counter("microbatch_steps_total").inc(steps * micro)
+    _, data_ax = mesh_axis_sizes(mesh)
+    shard_rem = batch_size % data_ax
+    if shard_rem:
+        _get_registry().counter("eval_data_pad_waste_total").inc((data_ax - shard_rem) * steps)
 
 
 def _record_cost_calibration(
@@ -968,11 +1064,14 @@ def _record_cost_calibration(
 def _resolve_device(mesh) -> torch.device:
     """The device an evaluation runs on.
 
-    ``"auto"`` (the default) and ``None`` mean the CUDA device and raise when
-    there is none: the port never falls back to the CPU by itself.  ``"cpu"``,
-    another device string, or a ``torch.device`` name the device explicitly.
+    ``"auto"`` (the default) and ``None`` mean the CUDA device (a rank's own
+    card) and raise when there is none: the port never falls back to the
+    CPU by itself.  ``"cpu"``, another device string, or a ``torch.device``
+    name the device explicitly; a :class:`Mesh` names its own.
     """
-    if mesh is None or mesh == "auto":
+    if isinstance(mesh, Mesh):
+        device = torch.device(mesh.device)
+    elif mesh is None or mesh == "auto":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "mesh='auto' runs on the CUDA device and none is available; "
@@ -988,28 +1087,60 @@ def _resolve_device(mesh) -> torch.device:
     return device
 
 
+def _runs_over_ranks(spec) -> bool:
+    """Does an evaluation of mesh ``spec`` run as the ranks of a mesh?"""
+    return isinstance(spec, Mesh) or multihost.process_count() > 1
+
+
+#: Mesh shape of the previous evaluation in this process, for the
+#: ``mesh_reshapes_total`` counter: each change is a new layout, and size
+#: classes interleaved carelessly show up as churn.
+_LAST_MESH_SHAPE: Optional[Tuple[int, int]] = None
+
+
 def _prepare_population_setup(cfg: Dict[str, Any], genomes: Sequence[Mapping[str, Any]]):
-    """Point the kernel build at ``cache_dir``, resolve the device, pad the
-    population to its bucket, stack the genome masks onto the device and
-    build the module."""
+    """Point the kernel build at ``cache_dir``, resolve the device and the
+    mesh, pad the population to its bucket and to the pop axis, stack the
+    genome masks (host arrays, all slots) and build the module for this
+    rank's slots.
+
+    Returns ``(device, mesh, genomes, n_real, masks, model, hashes)``; the
+    padded ``genomes``, ``masks`` and ``hashes`` cover every slot, the
+    module one pop row's.  Records the ``mesh_pop_axis``/``mesh_data_axis``
+    gauges, ``mesh_reshapes_total`` and ``eval_pad_waste_total``.
+    """
+    global _LAST_MESH_SHAPE
     cache_dir = cfg["cache_dir"]
     enable_compilation_cache(default_cache_dir() if cache_dir is None else cache_dir)
     run_publish_hooks()
     device = _resolve_device(cfg["mesh"])
+    # A Mesh is taken as given; otherwise, in a world of several ranks, the
+    # mesh over them derives from the BUCKETED size (so small batches that
+    # pad to one shape share one factoring), on each rank's device.
+    target = pop_bucket(len(genomes)) if cfg["pop_padding"] else len(genomes)
+    mesh = cfg["mesh"] if isinstance(cfg["mesh"], Mesh) else auto_mesh(
+        pop_size=target, size_class=_genome_size_class(cfg)[0], device=device)
+    multiple = mesh.shape["pop"] if mesh is not None else 1
     if cfg["pop_padding"]:
-        genomes, n_real = pad_population(genomes, pop_bucket(len(genomes)))
+        if target % multiple:  # the mesh's multiple on top of the bucket
+            target += multiple - target % multiple
+        genomes, n_real = pad_population(genomes, target)
     else:
-        genomes, n_real = list(genomes), len(genomes)
+        genomes, n_real = pad_population(genomes, multiple)
+    reg = _get_registry()
+    pop_ax, data_ax = mesh_axis_sizes(mesh)
+    reg.gauge("mesh_pop_axis").set(pop_ax)
+    reg.gauge("mesh_data_axis").set(data_ax)
+    if _LAST_MESH_SHAPE is not None and (pop_ax, data_ax) != _LAST_MESH_SHAPE:
+        reg.counter("mesh_reshapes_total").inc()
+    _LAST_MESH_SHAPE = (pop_ax, data_ax)
     if len(genomes) > n_real:
-        _get_registry().counter("eval_pad_waste_total").inc(len(genomes) - n_real)
-    masks = [
-        {k: torch.as_tensor(v, device=device) for k, v in stage.items()}
-        for stage in stack_genome_masks(genomes, cfg["nodes"])
-    ]
+        reg.counter("eval_pad_waste_total").inc(len(genomes) - n_real)
+    masks = stack_genome_masks(genomes, cfg["nodes"])
     model = MaskedGeneticCnn(
         nodes=cfg["nodes"],
         filters=cfg["kernels_per_layer"],
-        pop=len(genomes),
+        pop=len(genomes) // multiple,
         input_shape=cfg["input_shape"],
         dense_units=cfg["dense_units"],
         n_classes=cfg["n_classes"],
@@ -1018,7 +1149,18 @@ def _prepare_population_setup(cfg: Dict[str, Any], genomes: Sequence[Mapping[str
         stage_exit_conv=bool(cfg["stage_exit_conv"]),
         device=device,
     )
-    return device, genomes, n_real, masks, model, _genome_hashes(genomes)
+    return device, mesh, genomes, n_real, masks, model, _genome_hashes(genomes)
+
+
+def _local_share(mesh: Optional[Mesh], masks, hashes: np.ndarray, batch_idx: np.ndarray,
+                 microbatch: int, device: torch.device):
+    """This rank's masks (on ``device``), slot hashes, batch rows and
+    ``batch_rows`` (``shard_cv_args``); everything whole on one process."""
+    batch_rows = None
+    if mesh is not None:
+        _, masks, hashes, batch_idx, batch_rows = shard_cv_args(
+            mesh, None, masks, hashes, batch_idx, microbatch)
+    return [multihost.place_tree(stage, device) for stage in masks], hashes, batch_idx, batch_rows
 
 
 def _one_genome_per_call(run_one, genomes, config: Dict[str, Any], micro: int) -> np.ndarray:
@@ -1045,7 +1187,12 @@ class GeneticCnnModel(GentunModel):
 
     - ``mesh``: ``"auto"`` (default) runs on the CUDA device and raises when
       there is none; ``"cpu"`` (or any device string, or a ``torch.device``)
-      runs there.  There is no multi-device placement yet.
+      runs there.  In a ``torch.distributed`` world of several ranks
+      (``parallel.multihost.initialize``) every rank makes the same call and
+      the evaluation runs over a ``(pop, data)`` mesh of the ranks
+      (``parallel.mesh.auto_mesh``, honouring the ``--mesh`` override), each
+      rank on its card (or on the named device); a ``Mesh`` pins the
+      layout.  Every rank returns every fitness.
     - ``segment_steps``: the length of one segment of the host loop (the
       unit a telemetry ``train`` span covers); validated as in the reference.
     - ``cache_dir``: the directory the conv kernels' library is built into
@@ -1059,12 +1206,12 @@ class GeneticCnnModel(GentunModel):
       one-genome constructor too (the reference's takes it only in
       ``cross_validate_population``), so a species evaluated one
       individual at a time, as ``AsyncEvolution`` evaluates, can use it.
-    - ``device_budget``: bytes one device may spend on one genome.  The port
-      runs on one device, where the cost model's ``big`` class (the batch
-      sharded over a data axis) cannot occur: a config over the budget is
-      ``micro``, one genome per call with the smallest gradient-accumulation
-      factor that fits; one whose parameter state and one example exceed it
-      raises ``ValueError``.
+    - ``device_budget``: bytes one card may spend on one genome.  A config
+      over it runs one genome per call: ``big`` spreads the batch over every
+      rank of a ``(1, world)`` mesh, ``micro`` adds the smallest
+      gradient-accumulation factor that fits (on one card ``big`` cannot
+      occur); one whose parameter state and one example exceed it raises
+      ``ValueError``.
 
     Data contract: ``x_train``/``y_train`` are treated as immutable; the
     permuted dataset is cached on the device across ``evaluate()`` calls,
@@ -1150,7 +1297,9 @@ class GeneticCnnModel(GentunModel):
         ``fitness_reps > 1`` averages each genome over that many independent
         trainings, one call per rep with seed ``seed + 7919·r``.  A
         population too large for the device's memory is chunked
-        (``_chunked_by_cap``).
+        (``_chunked_by_cap``), in one process only: over a mesh a CUDA OOM
+        raises, since one rank's chunking would part it from the others'
+        collectives.
         """
         reps_raw = config.get("fitness_reps", 1)
         reps = 1 if reps_raw is None else int(reps_raw)
@@ -1172,6 +1321,8 @@ class GeneticCnnModel(GentunModel):
                 lambda gs, **sub: cls._cross_validate_population_one(x_train, y_train, gs, **sub),
                 genomes, config, micro,
             )
+        if _runs_over_ranks(cfg0["mesh"]):
+            return cls._cross_validate_population_one(x_train, y_train, genomes, **config)
         return _chunked_by_cap(
             lambda gs: cls._cross_validate_population_one(x_train, y_train, gs, **config),
             list(genomes),
@@ -1193,7 +1344,8 @@ class GeneticCnnModel(GentunModel):
         x, y = _prepare_data(x_train, y_train, cfg)
         if len(genomes) == 0:
             return np.zeros((0,), dtype=np.float32)
-        device, genomes, n_real, masks, model, hashes = _prepare_population_setup(cfg, genomes)
+        device, mesh, genomes, n_real, masks, model, hashes = _prepare_population_setup(
+            cfg, genomes)
 
         kfold = cfg["kfold"]
         n = x.shape[0]
@@ -1215,7 +1367,7 @@ class GeneticCnnModel(GentunModel):
         total_steps = sum(cfg["epochs"]) * steps_per_epoch
         eval_bs, n_val_padded = _eval_batch_size(batch_size, fold_size)
         pad = n_val_padded - fold_size
-        _fit_microbatch(cfg, batch_size, total_steps * kfold)
+        _account_sharded_batch(cfg, mesh, batch_size, total_steps * kfold)
 
         batch_idx = np.zeros((kfold, total_steps, batch_size), dtype=np.int64)
         val_idx = np.zeros((kfold, n_val_padded), dtype=np.int64)
@@ -1231,22 +1383,27 @@ class GeneticCnnModel(GentunModel):
                 [np.ones(fold_size, np.float32), np.zeros(pad, np.float32)]
             )
 
-        params = _init_population_params(model, kfold, cfg["seed"], hashes)
-        _record_cost_calibration(cfg, params, kfold * len(genomes), device)
+        masks, local, batch_idx, batch_rows = _local_share(
+            mesh, masks, hashes, batch_idx, cfg["microbatch"], device)
+        params = _init_population_params(model, kfold, cfg["seed"], local)
+        _record_cost_calibration(cfg, params, kfold * len(local), device)
         x_dev, y_dev = _device_dataset(x_train, y_train, x, y, perm, cfg, device)
         # Parent→child weight inheritance (multi-fidelity ladder): overlay
         # each real slot's own lower-rung trained params where shapes match,
         # and bank fold 0's results for the next rung.  Off with
         # fold_parallel, as in the reference, whose fused executor has no
-        # per-fold boundary.
-        warm_keys = hashes[:n_real] if cfg["warm_start"] and not cfg["fold_parallel"] else None
+        # per-fold boundary, and on a mesh, where the bank is per process
+        # (a cold start is always correct).
+        warm = cfg["warm_start"] and not cfg["fold_parallel"] and mesh is None
+        warm_keys = hashes[:n_real] if warm else None
         if warm_keys is not None:
             _, warmed = _warm_start_overlay(params, warm_keys)
             if warmed:
                 logger.debug("warm start: %d/%d slots inherited banked params", warmed, n_real)
         return _run_segmented(
-            cfg, model, masks, params, hashes, x_dev, y_dev, val_idx, val_weight,
-            batch_idx, steps_per_epoch, eval_bs, warm_keys=warm_keys,
+            cfg, model, masks, params, local, x_dev, y_dev, val_idx, val_weight,
+            batch_idx, steps_per_epoch, eval_bs, warm_keys=warm_keys, mesh=mesh,
+            batch_rows=batch_rows,
         ).mean(axis=0)[:n_real]
 
     # -- final holdout evaluation (not part of the reference's API) --------
@@ -1287,6 +1444,8 @@ class GeneticCnnModel(GentunModel):
                     x_train, y_train, x_test, y_test, gs, **sub),
                 genomes, config, micro,
             )
+        if _runs_over_ranks(cfg0["mesh"]):
+            return cls._train_and_score_one(x_train, y_train, x_test, y_test, genomes, **config)
         return _chunked_by_cap(
             lambda gs: cls._train_and_score_one(x_train, y_train, x_test, y_test, gs, **config),
             list(genomes),
@@ -1316,7 +1475,8 @@ class GeneticCnnModel(GentunModel):
         x_te, y_te = _prepare_data(x_test, y_test, cfg)
         if len(genomes) == 0:
             return np.zeros((0,), dtype=np.float32)
-        device, genomes, n_real, masks, model, hashes = _prepare_population_setup(cfg, genomes)
+        device, mesh, genomes, n_real, masks, model, hashes = _prepare_population_setup(
+            cfg, genomes)
 
         n_tr, n_te = x_tr.shape[0], x_te.shape[0]
         batch_size = min(cfg["batch_size"], n_tr)
@@ -1324,7 +1484,7 @@ class GeneticCnnModel(GentunModel):
         total_steps = sum(cfg["epochs"]) * steps_per_epoch
         eval_bs, n_val_padded = _eval_batch_size(batch_size, n_te)
         pad = n_val_padded - n_te
-        _fit_microbatch(cfg, batch_size, total_steps)
+        _account_sharded_batch(cfg, mesh, batch_size, total_steps)
 
         # Host-side RNG exactly as the reference draws it.
         rng = np.random.default_rng(cfg["seed"])
@@ -1335,16 +1495,19 @@ class GeneticCnnModel(GentunModel):
         val_idx = (n_tr + np.concatenate([np.arange(n_te), np.zeros(pad)])).astype(np.int64)[None]
         val_weight = np.concatenate([np.ones(n_te, np.float32), np.zeros(pad, np.float32)])[None]
 
-        params = _init_population_params(model, 1, cfg["seed"], hashes, domain=_HOLDOUT_DOMAIN)
-        _record_cost_calibration(cfg, params, len(genomes), device)
+        masks, local, batch_idx, batch_rows = _local_share(
+            mesh, masks, hashes, batch_idx, cfg["microbatch"], device)
+        params = _init_population_params(model, 1, cfg["seed"], local, domain=_HOLDOUT_DOMAIN)
+        _record_cost_calibration(cfg, params, len(local), device)
         # The combined array is built per call: a holdout runs once per
         # search, so it is not cached.
         x_full = torch.from_numpy(np.concatenate([x_tr, x_te])).to(device)
         x_full = x_full.permute(0, 3, 1, 2).contiguous()
         y_full = torch.from_numpy(np.concatenate([y_tr, y_te]).astype(np.int64)).to(device)
         accs = _run_segmented(
-            cfg, model, masks, params, hashes, x_full, y_full, val_idx, val_weight,
-            batch_idx, steps_per_epoch, eval_bs, domain=_HOLDOUT_DOMAIN,
+            cfg, model, masks, params, local, x_full, y_full, val_idx, val_weight,
+            batch_idx, steps_per_epoch, eval_bs, domain=_HOLDOUT_DOMAIN, mesh=mesh,
+            batch_rows=batch_rows,
         )
         return accs[0][:n_real]
 

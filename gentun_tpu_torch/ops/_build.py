@@ -15,6 +15,7 @@ the stream pass as ``c_void_p``.  Importing this module needs neither ``nvcc`` n
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import logging
 import os
@@ -96,24 +97,34 @@ def build() -> Path:
     """Compile the sources unless the library for them exists; returns its path.
 
     The compiler writes to a temporary name that is renamed into place, so
-    two processes building at once never load a half-written file.  A failed
-    build raises with the compiler's output.
+    no process ever loads a half-written file.  Processes that share the
+    build directory (the ranks of a worker on one host) take an exclusive
+    ``flock`` on it first: one builds, the others wait and load its file.
+    The kernel drops the lock with its holder, so a killed build leaves no
+    stale lock.  A failed build raises with the compiler's output.
     """
     global build_log
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-    logger.info("building %s with nvcc", out)
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, out)
-    return out
+    fd = os.open(out.parent, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        if out.exists():  # another process built it while this one waited
+            return out
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+        logger.info("building %s with nvcc", out)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}")
+        os.replace(tmp, out)
+        return out
+    finally:
+        os.close(fd)  # releases the lock
 
 
 def library() -> ctypes.CDLL:

@@ -1,13 +1,19 @@
-"""Population-axis helpers for the batched trainer: pure host math.
+"""The ``(pop, data)`` mesh of the batched trainer, and its host math.
 
-The jax-free half of the JAX package's ``parallel/mesh.py``: compile-shape
-bucketing (:func:`pop_bucket`), population padding (:func:`pad_population`)
-and the per-genome cost model with its size classes
-(:func:`cnn_genome_cost`, :func:`classify_genome_cost`), and the dispatch
-plane's mesh arithmetic (:func:`mesh_factor`, :func:`host_worker_capacity`,
-:func:`job_size_class`, the worker's ``--mesh`` override).  The device half
-(``auto_mesh``, ``shard_cv_args``: multi-device placement) is not ported
-yet; the port runs on one device.
+The host half is pure integer math that the dispatch plane uses without
+touching a device: compile-shape bucketing (:func:`pop_bucket`), population
+padding (:func:`pad_population`), the per-genome cost model with its size
+classes (:func:`cnn_genome_cost`, :func:`classify_genome_cost`), and the
+mesh arithmetic (:func:`mesh_factor`, :func:`host_worker_capacity`,
+:func:`job_size_class`, the worker's ``--mesh`` override).
+
+The device half lays an evaluation over the ranks of a ``torch.distributed``
+group, one rank per card (``multihost.py``).  :func:`auto_mesh` factors the
+world into a :class:`Mesh`: rank ``r`` sits at row ``r // data`` of the
+``pop`` axis and column ``r % data`` of the ``data`` axis.  A pop row trains
+its own slice of the population with no communication; the ranks of a row
+split each step's batch and all-reduce the gradients over the row's group.
+:func:`shard_cv_args` cuts one rank's share out of a CV call's inputs.
 """
 
 from __future__ import annotations
@@ -15,6 +21,10 @@ from __future__ import annotations
 from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 __all__ = [
+    "Mesh",
+    "auto_mesh",
+    "mesh_axis_sizes",
+    "shard_cv_args",
     "pad_population",
     "pop_bucket",
     "mesh_factor",
@@ -57,9 +67,9 @@ def mesh_factor(n_devices: int, pop_size: Optional[int] = None,
 
     Pure integer math — no device objects, no backend init — so the
     dispatch plane (worker capacity derivation, broker-side sizing) can
-    reason about mesh shapes without touching a device.  The multi-device
-    evaluator (not ported yet) is to build its mesh from this factoring,
-    so a worker's advertised mesh shape and its evaluation mesh agree.
+    reason about mesh shapes without touching a device.  :func:`auto_mesh`
+    builds its mesh from this factoring, so a worker's advertised mesh shape
+    and its evaluation mesh agree.
 
     ``size_class`` (see :data:`SIZE_CLASSES`) flips the preference: the
     default ``small`` puts devices on the communication-free ``pop`` axis
@@ -416,3 +426,152 @@ def pad_population(genomes: Sequence[Any], multiple: int) -> Tuple[List[Any], in
         return list(genomes), n
     padded = list(genomes) + [genomes[-1]] * (multiple - n % multiple)
     return padded, n
+
+
+# ---------------------------------------------------------------------------
+# The device half: a (pop, data) grid of ranks
+# ---------------------------------------------------------------------------
+
+
+class Mesh:
+    """A ``(pop, data)`` grid of the world's ranks, seen from this rank.
+
+    ``shape`` is ``{"pop": P, "data": D}``; this rank sits at ``row`` (its
+    slice of the population) and ``col`` (its share of every batch);
+    ``device`` is where it computes; ``data_group`` is the process group of
+    its row (``None`` when ``D`` is 1: a row of one rank needs no
+    collective).
+    """
+
+    def __init__(self, pop_axis: int, data_axis: int, rank: int, device, data_group):
+        self.shape = {"pop": int(pop_axis), "data": int(data_axis)}
+        self.row, self.col = divmod(int(rank), int(data_axis))
+        self.device = device
+        self.data_group = data_group
+
+    @property
+    def row_leaders(self) -> List[int]:
+        """The rank at column 0 of each row, in row order."""
+        return [r * self.shape["data"] for r in range(self.shape["pop"])]
+
+    def __repr__(self) -> str:
+        return (f"Mesh(pop={self.shape['pop']}, data={self.shape['data']}, "
+                f"row={self.row}, col={self.col}, device={self.device})")
+
+
+def auto_mesh(
+    pop_size: Optional[int] = None,
+    pop_axis: Optional[int] = None,
+    data_axis: Optional[int] = None,
+    size_class: str = SIZE_SMALL,
+    device=None,
+) -> Optional[Mesh]:
+    """Factor the world's ranks into a ``(pop, data)`` mesh.
+
+    Preference order: put ranks on the communication-free ``pop`` axis (up
+    to ``pop_size``); spill the rest onto ``data``.  Returns ``None`` when
+    the world is one process, so one card stays annotation-free.
+
+    Explicit ``pop_axis``/``data_axis`` override the heuristic (their
+    product must equal the world size; non-positive values are a loud
+    ``ValueError`` on every world size).  When the caller pins no axes, the
+    process-wide operator override (:func:`set_mesh_override`, the worker's
+    ``--mesh POPxDATA``) applies; ``size_class`` ``big`` or ``micro`` beats
+    both and forces ``(1, world)``, so the batch spreads over every rank.
+    ``device`` is where this rank computes (default: its card,
+    ``multihost.local_device``).  Collective on first use of a shape: every
+    rank calls it with the same arguments.
+    """
+    from . import multihost
+
+    for name, axis in (("pop_axis", pop_axis), ("data_axis", data_axis)):
+        if axis is not None and axis < 1:
+            raise ValueError(
+                f"{name} must be a positive integer, got {axis} "
+                f"(omit the argument to let auto_mesh factor the ranks itself)")
+    if size_class not in SIZE_CLASSES:
+        raise ValueError(
+            f"size_class must be one of {SIZE_CLASSES}, got {size_class!r}")
+    n = multihost.process_count()
+    if n == 1:
+        return None
+    if size_class != SIZE_SMALL:
+        pop_axis, data_axis = 1, n
+    elif pop_axis is None and data_axis is None and _MESH_OVERRIDE is not None:
+        pop_axis, data_axis = _MESH_OVERRIDE
+    if pop_axis is not None or data_axis is not None:
+        if pop_axis is None:
+            pop_axis = n // data_axis
+        elif data_axis is None:
+            data_axis = n // pop_axis
+        if pop_axis * data_axis != n:
+            raise ValueError(f"pop_axis*data_axis = {pop_axis}*{data_axis} != {n} ranks")
+    else:
+        pop_axis, data_axis = mesh_factor(n, pop_size)
+    if device is None:
+        device = multihost.local_device()
+    return Mesh(pop_axis, data_axis, multihost.process_index(), device,
+                multihost.row_group(pop_axis, data_axis))
+
+
+def mesh_axis_sizes(mesh: Optional[Mesh]) -> Tuple[int, int]:
+    if mesh is None:
+        return 1, 1
+    return mesh.shape["pop"], mesh.shape["data"]
+
+
+def data_shard(n: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """``[lo, hi)``: this rank's rows of ``n`` split over the data axis in
+    contiguous shares that differ by at most one row."""
+    if mesh is None:
+        return 0, n
+    d, c = mesh.shape["data"], mesh.col
+    q, r = divmod(int(n), d)
+    lo = c * q + min(c, r)
+    return lo, lo + q + (1 if c < r else 0)
+
+
+def shard_cv_args(
+    mesh: Mesh,
+    params: Optional[Mapping[str, Any]],
+    masks_stacked: List[Dict[str, Any]],
+    hashes,
+    batch_idx,
+    microbatch: int = 1,
+):
+    """This rank's share of a batched CV call's inputs.
+
+    Layouts as the executor builds them (``models/cnn.py``): ``params``
+    ``(kfold, P, ...)``, masks ``(P, ...)``, ``hashes (P, 2)``,
+    ``batch_idx (kfold, steps, batch)``.
+
+    - ``params``, masks and ``hashes``: the pop row's slice of the P slots.
+      A slot's initial params and its per-(fold, genome) dropout generators
+      are seeded from its hash alone, so slicing the hashes slices both
+      (``params=None`` when the caller draws them from the row's hashes).
+    - ``batch_idx``: the data column's rows of each step, taken inside each
+      of the ``microbatch`` slices, so a micro-slice's share is the
+      column's share of that slice.
+    - The dataset and the validation rows are replicated: the caller places
+      them whole on each rank (one upload per rank).
+
+    Returns ``(params, masks, hashes, batch_idx, batch_rows)``;
+    ``batch_rows`` is ``(lo, hi, n)``: this rank holds rows ``[lo, hi)`` of
+    each micro-slice of ``n`` rows, which the train step needs to draw the
+    one-process dropout stream and to divide each loss by the whole slice.
+    """
+    pop = mesh.shape["pop"]
+    n_slots = len(hashes)
+    if n_slots % pop:
+        raise ValueError(f"{n_slots} population slots do not divide over a pop axis of {pop}")
+    per = n_slots // pop
+    rows = slice(mesh.row * per, (mesh.row + 1) * per)
+    if params is not None:
+        params = {k: v[:, rows] for k, v in params.items()}
+    masks = [{k: v[rows] for k, v in stage.items()} for stage in masks_stacked]
+    kfold, steps, batch = batch_idx.shape
+    micro = batch // int(microbatch)
+    lo, hi = data_shard(micro, mesh)
+    local = batch_idx.reshape(kfold, steps, int(microbatch), micro)[..., lo:hi]
+    return (params, masks, hashes[rows],
+            local.reshape(kfold, steps, int(microbatch) * (hi - lo)), (lo, hi, micro))

@@ -8,8 +8,6 @@ with its counterpart in ``tests/test_torch_dist_seams.py``:
 - ``TestPlatformFingerprint::test_components_name_the_compat_facts`` and
   ``test_xla_flags_change_the_fingerprint``: they name jax's fingerprint
   fields; the port fingerprints torch, CUDA, driver, SM, flags and sources.
-- ``TestClientGuards::test_worker_cli_refuses_multihost``: the port's CLI
-  refuses ``--coordinator`` itself, before it reads ``--compile-cache-url``.
 
 The concurrent-publish case passes here because the port's client counts
 the batch in flight (``CompileServiceClient.flush``); the loop in
@@ -24,5 +22,4 @@ load(globals(), "test_compile_service.py",
            ('monkeypatch.setenv("GENTUN_TPU_CACHE_DIR", str(cache_dir))',
             'monkeypatch.setenv("GENTUN_TORCH_CACHE_DIR", str(cache_dir))')],
      leave_out=["TestPlatformFingerprint::test_components_name_the_compat_facts",
-                "TestPlatformFingerprint::test_xla_flags_change_the_fingerprint",
-                "TestClientGuards::test_worker_cli_refuses_multihost"])
+                "TestPlatformFingerprint::test_xla_flags_change_the_fingerprint"])

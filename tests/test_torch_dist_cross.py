@@ -6,6 +6,7 @@ local evaluation.  The fitness services, the compile-service fingerprints
 and the canary's goldens keep the two packages' values apart.
 """
 
+import contextlib
 import json
 import threading
 import urllib.error
@@ -31,18 +32,36 @@ TINY_CNN = dict(nodes=(3, 3), kernels_per_layer=(4, 4), kfold=2, epochs=(1,),
                 compute_dtype="float32", seed=0)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One OpenMP and one torch intra-op thread, restored after: sklearn's and
-    torch's thread pools spin against other test workers' otherwise (see
-    ``tests/test_torch_cnn.py``)."""
+@contextlib.contextmanager
+def _one_thread_here():
+    """One OpenMP and one torch intra-op thread for the calling thread,
+    restored after.  Both limits are per thread: a thread started under
+    them still gets a pool of one thread per core."""
     from threadpoolctl import threadpool_limits
 
     saved = torch.get_num_threads()
     torch.set_num_threads(1)
-    with threadpool_limits(limits=1):
+    try:
+        with threadpool_limits(limits=1):
+            yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One OpenMP and one torch intra-op thread in the main thread: sklearn's
+    and torch's thread pools spin against other test workers' otherwise (see
+    ``tests/test_torch_cnn.py``).  The limits hold for this thread only; a
+    client thread takes them itself (``_serve``)."""
+    with _one_thread_here():
         yield
-    torch.set_num_threads(saved)
+
+
+def _work_one_thread(client, stop):
+    """``client.work`` under the same limits as the main thread."""
+    with _one_thread_here():
+        client.work(stop_event=stop)
 
 
 def _images():
@@ -136,7 +155,7 @@ def _serve(master_pkg, worker_pkg, species):
         client = client_mod.GentunClient(cls_of(worker_pkg), x, y, port=pop.broker_address[1],
                                          capacity=4, heartbeat_interval=0.2,
                                          reconnect_delay=0.05)
-        t = threading.Thread(target=client.work, kwargs={"stop_event": stop}, daemon=True)
+        t = threading.Thread(target=_work_one_thread, args=(client, stop), daemon=True)
         t.start()
         try:
             pop.evaluate()

@@ -158,17 +158,40 @@ def test_host_species_never_touches_cuda(monkeypatch):
         GentunClient(OneMax, *DATA, host="127.0.0.1", capacity="auto")
 
 
-def test_multihost_client_is_refused():
-    with pytest.raises(ValueError, match="not ported"):
-        GentunClient(OneMax, *DATA, host="127.0.0.1", multihost=True)
+def test_multihost_client_counts_the_world_s_cards(monkeypatch):
+    """A multihost worker's mesh spans its ranks, one card each: capacity
+    ``auto`` and the hello's chip count read the world size, never the
+    local CUDA devices."""
+    from gentun_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(multihost, "process_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    c = GentunClient(GeneticCnnIndividual, *DATA, host="127.0.0.1", capacity="auto",
+                     multihost=True)
+    assert (c.capacity, c._mesh_shape, c._fleet_chips()) == (8, (4, 1), 4)
+    assert c._is_leader
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(fitness_store="fitness.json"),
+    dict(cache_url="127.0.0.1:9"),
+    dict(compile_cache_url="http://127.0.0.1:9"),
+    dict(broker_urls=["127.0.0.1:1", "127.0.0.1:2"]),
+])
+def test_multihost_client_refuses_per_host_state(kwargs):
+    """What one host has and another may not (a store file, a cache hit, a
+    shard connection) would part the ranks mid-collective: refused."""
+    with pytest.raises(ValueError, match="multihost"):
+        GentunClient(OneMax, *DATA, host="127.0.0.1", multihost=True, **kwargs)
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--coordinator", "10.0.0.1:8476"], "multi-host workers are not ported"),
-    (["--num-processes", "2", "--process-id", "0"], "multi-host workers are not ported"),
+    (["--num-processes", "2", "--process-id", "0"], "require --coordinator"),
+    (["--backend", "gloo"], "require --coordinator"),
+    (["--coordinator", "10.0.0.1:8476"], "requires --num-processes and --process-id"),
     (["--coordinator", "h:1", "--compile-cache-url", "http://h:9737"],
-     "multi-host workers are not ported"),
-    (["--mesh", "2x1"], "one worker drives one CUDA device"),
+     "--compile-cache-url is not supported with --coordinator"),
+    (["--mesh", "2x1"], "does not factor the worker's 1 rank(s)"),
     (["--mesh", "3x"], "--mesh"),
     (["--capacity", "0"], "--capacity"),
 ])

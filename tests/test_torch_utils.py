@@ -289,9 +289,9 @@ class TestBenchEntryExample:
     def test_dryrun_multichip_refuses_many_cards_and_a_missing_card(self, monkeypatch):
         import torch_entry
 
-        with pytest.raises(NotImplementedError):
-            torch_entry.dryrun_multichip(2)
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            torch_entry.dryrun_multichip(2)
         with pytest.raises(RuntimeError, match="CUDA"):
             torch_entry.dryrun_multichip(1)
         with pytest.raises(RuntimeError, match="CUDA"):

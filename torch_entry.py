@@ -9,9 +9,14 @@ The port's counterparts of ``__graft_entry__.py``'s ``entry()`` and
   fitness path draws them, on the CUDA card; ``device="cpu"`` asks for the
   CPU.  ``forward(*example_args)`` returns float32 logits ``(1, 8, 10)``.
 - :func:`dryrun_multichip` runs one tiny complete k-fold CV (decode, masks,
-  init, train steps, gradients, SGD, eval) through the production path on
-  the card for ``n_devices=1``.  The port has no multi-card placement yet:
-  ``n_devices > 1`` raises ``NotImplementedError``.
+  init, train steps, gradients, SGD, eval) through the production path:
+  for ``n_devices=1`` in this process on the card; for ``n_devices > 1``
+  as that many rank processes of one ``torch.distributed`` group (the
+  port's unit is one process per card), on a ``(pop, data)`` mesh of
+  ``(n/2, 2)`` ranks for even ``n``, so both axes run.  With ``n`` cards
+  each rank takes its own over NCCL; with fewer, the ranks share the card
+  over gloo, and the output says so.  ``device="cpu"`` runs the ranks on
+  the CPU over gloo.
 """
 
 from __future__ import annotations
@@ -53,12 +58,9 @@ def entry(device=None):
     return forward, (model, x, masks)
 
 
-def dryrun_multichip(n_devices: int) -> None:
-    """One tiny complete CV on the card; more than one card is not ported."""
-    if n_devices != 1:
-        raise NotImplementedError(
-            f"dryrun_multichip({n_devices}): the port places work on one CUDA card; "
-            "multi-card placement is not ported yet")
+def _tiny_cv(mesh):
+    """The dry run's workload: 4 genomes of S=(3,4,5), filters 8, on 64
+    random 8×8×3 images, kfold 2, one epoch, float32."""
     from gentun_tpu_torch.models.cnn import GeneticCnnModel
 
     rng = np.random.default_rng(0)
@@ -68,12 +70,84 @@ def dryrun_multichip(n_devices: int) -> None:
         {"S_1": tuple(int(b) for b in rng.integers(0, 2, 3)),
          "S_2": tuple(int(b) for b in rng.integers(0, 2, 6)),
          "S_3": tuple(int(b) for b in rng.integers(0, 2, 10))}
-        for _ in range(2)
+        for _ in range(4)
     ]
-    accs = GeneticCnnModel.cross_validate_population(
+    return GeneticCnnModel.cross_validate_population(
         x, y, genomes, nodes=(3, 4, 5), kernels_per_layer=(8, 8, 8), kfold=2, epochs=(1,),
         learning_rate=(0.05,), batch_size=16, dense_units=16, compute_dtype="float32", seed=0,
-        mesh="auto")
-    if accs.shape != (2,) or not np.isfinite(accs).all():
-        raise RuntimeError(f"dryrun_multichip: bad accuracies {accs!r}")
-    print(f"dryrun_multichip OK: 1 card, pop=2, accs={np.round(accs, 3)}")
+        mesh=mesh)
+
+
+def _dryrun_rank(n_devices: int, rank: int, port: int, backend: str, device: str) -> None:
+    """One rank of :func:`dryrun_multichip`'s group (run in its own process)."""
+    from gentun_tpu_torch.parallel import mesh as mesh_mod
+    from gentun_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"127.0.0.1:{port}", n_devices, rank, backend=backend)
+    try:
+        pop_axis = n_devices // 2 if n_devices % 2 == 0 else n_devices
+        mesh = mesh_mod.auto_mesh(pop_axis=pop_axis, data_axis=n_devices // pop_axis,
+                                  device=None if device == "auto" else device)
+        accs = _tiny_cv(mesh)
+        if accs.shape != (4,) or not np.isfinite(accs).all():
+            raise RuntimeError(f"dryrun_multichip rank {rank}: bad accuracies {accs!r}")
+        if multihost.is_leader():
+            print(f"dryrun_multichip OK: {n_devices} ranks, backend {backend}, mesh "
+                  f"{mesh.shape['pop']}x{mesh.shape['data']} on {mesh.device}, pop=4, "
+                  f"accs={np.round(accs, 3)}", flush=True)
+    finally:
+        multihost.shutdown()
+
+
+def dryrun_multichip(n_devices: int, device=None, timeout: float = 600.0) -> None:
+    """One tiny complete CV on the card (``n_devices=1``) or over ``n_devices``
+    rank processes; raises when a rank fails or there is no card (unless
+    ``device="cpu"``)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import torch
+
+    n = int(n_devices)
+    if n < 1:
+        raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+    if n == 1:
+        accs = _tiny_cv("auto" if device is None else device)
+        if accs.shape != (4,) or not np.isfinite(accs).all():
+            raise RuntimeError(f"dryrun_multichip: bad accuracies {accs!r}")
+        print(f"dryrun_multichip OK: 1 process, pop=4, accs={np.round(accs, 3)}")
+        return
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"dryrun_multichip({n}): no CUDA device; pass device='cpu' to run the "
+                "ranks on the CPU")
+        cards = torch.cuda.device_count()
+        backend = "nccl" if cards >= n else "gloo"
+        if backend == "gloo":
+            print(f"dryrun_multichip: {cards} card(s) for {n} ranks: the ranks share "
+                  f"them over gloo (NCCL needs one card per rank)", flush=True)
+    else:
+        backend = "gloo"
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = []
+    try:
+        for rank in range(n):
+            code = (f"import torch_entry; torch_entry._dryrun_rank({n}, {rank}, {port}, "
+                    f"{backend!r}, {str(device or 'auto')!r})")
+            procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=repo,
+                                          env=dict(env, LOCAL_RANK=str(rank))))
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs):
+        raise RuntimeError(f"dryrun_multichip({n}): rank exit codes {rcs}")
