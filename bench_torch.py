@@ -136,8 +136,11 @@ def measure(x, y, cfg: dict, pop: int = POP, mesh="auto", reps: int = 3, warmup:
             "warmup_seconds": warm_s}
 
 
-def card_line() -> str:
-    """``nvidia-smi``'s name and power limit of the first card."""
+def card_line(cpu: bool = False) -> str:
+    """``nvidia-smi``'s name and power limit of the first card; "cpu" for a
+    run that was asked for the CPU (it measures no card)."""
+    if cpu:
+        return "cpu"
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

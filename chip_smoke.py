@@ -102,6 +102,25 @@ W. BASELINE config #4 with the port's worker processes on the card, as
    W1's single-process fitness.  Gates: the probe equals its golden bit
    for bit, both kernels launched, no library convolution.  Every worker
    ends with ``SIGTERM`` (its drain) and must exit 0.
+S. The compute-path studies (``scripts/torch_*.py``) on config #2's proxy
+   cell at pop 20, phase 3's data and genomes, after phase W; under
+   ``S_BOUND_S`` by its own clock.  S1: ``torch_mfu_study.decompose``, the
+   call's fenced phases (host setup and indices, the cold dataset upload,
+   the CPU init draw, the param upload, the momentum and generators, the
+   index uploads, train, eval), ``mfu_train_only`` and
+   ``mfu_overall_fenced``; gate: its accuracies equal phase 3's timed call
+   bit for bit.  S2: ``entry_channel_pad`` 4 and 8 against unpadded
+   (``torch_entry_pad_study.compare``: a warm-up and a timed call each),
+   walls and MFU on the unpadded FLOPs; gate: each variant's mean accuracy
+   in the bench's proxy band (``ACC_GATE``, 0.5: a padded entry conv draws
+   other initial weights, fan-in over the padded channels, so its bits are
+   another training's), its distance from unpadded printed.  S3: ``examples/torch_cifar10_genetic_cnn.py
+   --generations 1``; gates: it returns, a finite best fitness, no library
+   convolution (``conv_counter``).  S4: ``torch_tailgen_study`` at
+   ``S_TAILGEN_GENERATIONS`` generations, speculative fill off and 16, each a
+   master and a worker process; gate: one GA trajectory and best.  Both
+   kernels must launch in S1-S3 and in S4's workers.  ``python3
+   chip_smoke.py --phase-s`` runs phase S alone.
 D. BASELINE config #5 at full width (S=(5,5,5), filters (64,128,256), dense
    512, 100 classes, pop 50, batch 256, bf16, the proxy schedule), as
    ``examples/torch_cifar100_deep.py`` runs it: ``RussianRouletteGA.run(1)``
@@ -164,7 +183,8 @@ Then the card's ``nvidia-smi`` name and power limit, the
 ``{"kernels": [...]}`` line (each kernel's main-path launches, error and
 per-train-step times at config #2, under ``deep`` the same at config #5
 with the launches of phase D's GA, under ``async`` at P=2 with phase A's
-launches, under ``distributed`` phase W's launches, under ``mesh`` and
+launches, under ``distributed`` phase W's launches, under ``studies``
+phase S's, under ``mesh`` and
 ``mesh_big`` each rank's launches in M1 and M2 with phase MK's times) and,
 last, ``{"ok": true, "device": {...}}``.
 """
@@ -1343,6 +1363,114 @@ def phase_workers(torch, workdir: str, single_rate: float):
     return result, w1_launches, w3_launches, local[1]
 
 
+#: Phase S: the compute-path studies (``scripts/torch_*.py``) at config #2.
+S_PADS, S_TAILGEN_GENERATIONS, S_BOUND_S = (4, 8), 3, 150.0
+
+
+def _load_study(name: str):
+    """A module of ``scripts/`` (or, for the example, ``examples/``) by path."""
+    import importlib.util
+
+    folder = "examples" if name.startswith("torch_cifar10") else "scripts"
+    spec = importlib.util.spec_from_file_location(f"study_{name}",
+                                                  os.path.join(REPO, folder, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_studies(torch, main_accs, workdir: str):
+    """The studies on the card at config #2 (see the module docstring, phase
+    S).  Returns the phase's record, the kernels' launches in this process
+    (S1-S3) and in S4's worker processes."""
+    from gentun_tpu_torch.ops import pop_conv
+
+    mfu, pad, tailgen = (_load_study(n) for n in (
+        "torch_mfu_study", "torch_entry_pad_study", "torch_tailgen_study"))
+    example = _load_study("torch_cifar10_genetic_cnn")
+    t_phase = time.monotonic()
+    x, y = cifar_data()
+    genomes = random_population(NODES, POP, seed=2)
+    for k in pop_conv.LAUNCHES:
+        pop_conv.LAUNCHES[k] = 0
+    result = {}
+
+    # S1: the fenced decomposition of phase 3's call.
+    ph = mfu.decompose(x, y, genomes, PROXY)
+    accs = np.asarray(ph["accs"], np.float32)
+    d = float(np.abs(accs - main_accs).max())
+    rest = sum(ph[k] for k in ("host_setup_and_indices", "dataset_upload_cold",
+                               "param_init_cpu_draw", "param_upload", "opt_init",
+                               "segment_index_upload"))
+    log("[S1] fenced decomposition of config #2's proxy call (pop 20): "
+        + ", ".join(f"{k} {ph[k]:.4f} s" for k in mfu.PHASES))
+    log(f"[S1] CPU init draw {ph['param_init_cpu_draw']:.4f} s, param upload "
+        f"{ph['param_upload']:.4f} s; all but train and eval {rest:.4f} s (cold upload "
+        f"included; a warm lookup {ph['dataset_lookup_warm']:.6f} s); mfu_train_only "
+        f"{ph['mfu_train_only']!r}, mfu_overall_fenced {ph['mfu_overall_fenced']!r}; "
+        f"accuracies vs phase 3's timed call: max|Δ| = {d}")
+    check(d == 0.0, "S1: the decomposition's accuracies equal phase 3's timed call, bit for bit")
+    result["S1"] = {k: ph[k] for k in (*mfu.PHASES, "mfu_train_only", "mfu_overall_fenced",
+                                       "accs_mean", "train_flops", "eval_flops")}
+
+    # S2: entry_channel_pad 4 and 8 against unpadded, MFU on the unpadded FLOPs.
+    variants = pad.compare(x, y, PROXY, S_PADS, POP, "auto", reps=1, warmup=True,
+                           useful=schedule_flops(PROXY, POP, N_DATA), n_cards=1)
+    for name, v in variants.items():
+        log(f"[S2] {name}: wall {v['wall_s']:.3f} s, {v['individuals_per_hour_per_chip']:.1f} "
+            f"individuals/hour, mfu (unpadded FLOPs) {v['mfu_useful']:.4f}, mean accuracy "
+            f"{v['accuracy_mean']:.4f} (Δ {v['accuracy_mean_delta_vs_unpadded']:+.4f}, max per "
+            f"genome {v['max_abs_accuracy_delta_vs_unpadded']:.4f}; a padded entry conv "
+            f"starts from other initial weights, so the gate is the bench's band)")
+        check(v["accuracy_mean"] >= pad.ACC_GATE["proxy"],
+              f"S2: {name}'s mean accuracy >= {pad.ACC_GATE['proxy']}")
+    result["S2"] = {n: {k: v[k] for k in v if k != "accs"} for n, v in variants.items()}
+
+    # S3: config #2's GA example, one generation, under the library-conv counter.
+    counter, t0 = conv_counter(), time.monotonic()
+    with counter:
+        ex = example.main(["--generations", "1"])
+    ex_s = time.monotonic() - t0
+    log(f"[S3] examples/torch_cifar10_genetic_cnn.py --generations 1 ({ex_s:.1f} s): best "
+        f"fitness {ex['best_fitness']:.4f}, history {[h['evaluated'] for h in ex['history']]} "
+        f"evaluated; library convolutions {counter.convs}")
+    check(np.isfinite(ex["best_fitness"]), "S3: a finite best fitness")
+    check(not counter.convs, f"S3: no library convolution ({counter.convs})")
+    result["S3"] = {"wall_s": ex_s, "best_fitness": ex["best_fitness"],
+                    "throughput": ex["throughput"]}
+    launches = dict(pop_conv.LAUNCHES)
+
+    # S4: the tail-generation study, speculative fill off and 16.
+    tdir = os.path.join(workdir, "tailgen")
+    os.makedirs(tdir, exist_ok=True)
+    t0 = time.monotonic()
+    rc = tailgen.main(["--generations", str(S_TAILGEN_GENERATIONS), "--workdir", tdir,
+                       "--out", os.path.join(tdir, "torch_tailgen_study.json")])
+    with open(os.path.join(tdir, "torch_tailgen_study.json")) as fh:
+        rec = json.load(fh)
+    worker_launches = {k: 0 for k in launches}
+    for name in rec["variants"]:
+        with open(os.path.join(tdir, "logs", f"torch_tailgen_{name}_worker.log")) as fh:
+            for k, n in _worker_usage(fh.read())["kernel_launches"].items():
+                worker_launches[k] += n
+    for name, v in rec["variants"].items():
+        log(f"[S4] {name}: {S_TAILGEN_GENERATIONS} generations in {v['proxy_total_wall_s']} s "
+            f"(with process starts {v['orchestrator_wall_s']} s), {v['evaluated_total']} trained, "
+            f"best {v['best_fitness']:.4f}")
+    log(f"[S4] trajectories identical: {rec['trajectories_identical']}; workers' kernel "
+        f"launches {worker_launches} ({time.monotonic() - t0:.1f} s)")
+    check(rc == 0 and rec["trajectories_identical"] and rec["best_fitness_identical"],
+          "S4: both variants follow one GA trajectory with one best")
+    result["S4"] = rec
+    log(f"[S] kernel launches in this process (S1-S3): {launches}")
+    for k in launches:
+        check(launches[k] > 0 and worker_launches[k] > 0, f"{k} launched in phase S")
+    result["phase_s"] = time.monotonic() - t_phase
+    log(f"[S] phase S took {result['phase_s']:.1f} s (bound {S_BOUND_S} s)")
+    check(result["phase_s"] < S_BOUND_S, f"phase S within {S_BOUND_S} s")
+    return result, launches, worker_launches
+
+
 def conv_counter():
     """A dispatch mode that counts every aten convolution op run inside it
     (the port's kernels are no aten op; a library conv would be one)."""
@@ -1935,7 +2063,8 @@ def _sub(tot, extra):
 
 def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
                  async_per_step, async_launches, worker_launches, canary_launches,
-                 mesh_launches, big_launches, mesh_per_step, big_per_step):
+                 mesh_launches, big_launches, mesh_per_step, big_per_step, studies_launches,
+                 studies_worker_launches):
     """The ``{"kernels": [...]}`` record: each kernel's launches on the main
     path (phase 3) and, from phase K, its error against the plain version and
     its times summed over the calls of one config #2 train step (bf16); under
@@ -1945,7 +2074,9 @@ def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
     process over its search, and the in-process client serving W3's canary
     probe; under ``mesh`` and ``mesh_big`` each rank's launches in phase M
     (M1's timed call over the ``(2, 1)`` mesh, M2's over the ``(1, 2)``
-    mesh) and the kernels' times at one rank's shapes there (phase MK)."""
+    mesh) and the kernels' times at one rank's shapes there (phase MK); under
+    ``studies`` the launches of phase S: S1-S3 in this process, and S4's
+    worker processes over both variants."""
     where = replaces(KERNEL_SOURCE)
     out = []
     for name, tot in per_step.items():
@@ -1978,6 +2109,13 @@ def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
                 "per": f"config #4: {W_GENERATIONS} generations of pop {POP} served by one "
                        f"worker process (capacity {POP}); the canary's one-genome probe",
             },
+            "studies": {
+                "launches": studies_launches[name],
+                "worker_launches": studies_worker_launches[name],
+                "per": f"phase S at config #2, pop {POP}: S1's fenced decomposition, S2's "
+                       f"three entry-pad variants (a warm-up and a timed call each), S3's "
+                       f"one-generation GA example in this process; S4's tail-generation "
+                       f"workers ({S_TAILGEN_GENERATIONS} generations, two variants)"},
             "mesh": _sub(mesh_per_step[name], {
                 "launches_per_rank": [r[name] for r in mesh_launches],
                 "per": f"phase M1: config #2 pop {POP} over a (2, 1) mesh of two ranks (gloo, "
@@ -2045,6 +2183,34 @@ def phase_m_main() -> int:
     return 0
 
 
+def phase_s_main() -> int:
+    """``python3 chip_smoke.py --phase-s``: phase S alone, with phase 3's
+    call made here (a warm-up call, then the timed one S1 is held to)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 2
+    from gentun_tpu_torch.models.cnn import GeneticCnnModel
+
+    phase_build()
+    name, smi = phase_device(torch)
+    x, y = cifar_data()
+    genomes = random_population(NODES, POP, seed=2)
+    GeneticCnnModel.cross_validate_population(x, y, genomes, **PROXY)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    main_accs = GeneticCnnModel.cross_validate_population(x, y, genomes, **PROXY)
+    torch.cuda.synchronize()
+    log(f"[S] phase 3's call: {time.monotonic() - t0:.3f} s")
+    del x, y
+    studies, launches, worker_launches = phase_studies(
+        torch, main_accs, os.path.join(REPO, "build", "chip_smoke"))
+    log(f"[6] summary: {json.dumps(studies, default=str)}")
+    print(smi)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2088,6 +2254,10 @@ def main() -> int:
         torch, os.path.join(REPO, "build", "chip_smoke"), main_result["individuals_per_hour"])
     gc.collect()
     torch.cuda.empty_cache()
+    studies, studies_launches, studies_worker_launches = phase_studies(
+        torch, main_accs, os.path.join(REPO, "build", "chip_smoke"))
+    gc.collect()
+    torch.cuda.empty_cache()
     deep, deep_launches, deep_slots, (x5, y5, pair, pair_accs) = phase_deep(
         torch, os.path.join(REPO, "build", "chip_smoke"))
     gc.collect()
@@ -2109,14 +2279,15 @@ def main() -> int:
     summary = {"main_path": main_result, "launches": launches, "purity_max_abs_diff": purity,
                "differing_grad_leaves": leaves, "executors": executors, "deep": deep,
                "deep_launches": deep_launches, "budget": budget, "async": asynchronous,
-               "workers": workers, "mesh": mesh,
+               "workers": workers, "studies": studies, "mesh": mesh,
                "card": smi, "total_s": time.monotonic() - t_start}
     log(f"[6] summary: {json.dumps(summary, default=str)}")
     print(smi)
     print(json.dumps(kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
                                   async_per_step, async_launches, worker_launches,
                                   canary_launches, mesh_launches, big_launches,
-                                  mesh_per_step, big_per_step)))
+                                  mesh_per_step, big_per_step, studies_launches,
+                                  studies_worker_launches)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
@@ -2125,4 +2296,6 @@ def main() -> int:
 if __name__ == "__main__":
     if "--rank" in sys.argv:
         sys.exit(rank_main(sys.argv[sys.argv.index("--rank") + 1:]))
+    if "--phase-s" in sys.argv:
+        sys.exit(phase_s_main())
     sys.exit(phase_m_main() if "--phase-m" in sys.argv else main())

@@ -748,6 +748,8 @@ class DistributedPopulation(Population):
                 type(e).__name__, len(res),
             )
         self._apply_results(res, by_id, {})
+        for job_id in res:
+            self._record_speculative(by_id[job_id])
 
     def _apply_results(
         self,
@@ -761,6 +763,7 @@ class DistributedPopulation(Population):
             key = self._safe_cache_key(ind)
             if key is not None:
                 self.fitness_cache[key] = float(fitness)
+                self._speculative_origins().pop(key, None)
             for dup in dup_map.get(job_id, []):
                 dup.set_fitness(fitness)
 

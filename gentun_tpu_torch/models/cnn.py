@@ -1152,6 +1152,49 @@ def _prepare_population_setup(cfg: Dict[str, Any], genomes: Sequence[Mapping[str
     return device, mesh, genomes, n_real, masks, model, _genome_hashes(genomes)
 
 
+def _cv_indices(cfg: Dict[str, Any], n: int):
+    """The host side of a CV call over ``n`` rows: ``(perm, batch_idx,
+    val_idx, val_weight, steps_per_epoch, eval_batch_size)``.
+
+    The host-side numpy RNG draws exactly as the reference draws it: the
+    same seed gives the same fold permutation and the same batch orders.
+    ``batch_idx`` is ``(kfold, steps, batch)`` and the validation arrays
+    ``(kfold, n_val_padded)``, padded rows weighted 0.
+    """
+    kfold = cfg["kfold"]
+    if kfold < 2:
+        raise ValueError("kfold must be >= 2")
+    fold_size = n // kfold
+    if fold_size == 0:
+        raise ValueError(f"kfold={kfold} exceeds dataset size {n}")
+    n_use = fold_size * kfold
+    rng = np.random.default_rng(cfg["seed"])
+    perm = rng.permutation(n)[:n_use]
+    folds = np.arange(n_use, dtype=np.int32).reshape(kfold, fold_size)
+
+    batch_size = min(cfg["batch_size"], n_use - fold_size)
+    n_tr = n_use - fold_size
+    steps_per_epoch = max(n_tr // batch_size, 1)
+    total_steps = sum(cfg["epochs"]) * steps_per_epoch
+    eval_bs, n_val_padded = _eval_batch_size(batch_size, fold_size)
+    pad = n_val_padded - fold_size
+
+    batch_idx = np.zeros((kfold, total_steps, batch_size), dtype=np.int64)
+    val_idx = np.zeros((kfold, n_val_padded), dtype=np.int64)
+    val_weight = np.zeros((kfold, n_val_padded), dtype=np.float32)
+    for f in range(kfold):
+        tr_idx = np.concatenate([folds[g] for g in range(kfold) if g != f])
+        order = np.concatenate(
+            [rng.permutation(n_tr) for _ in range(sum(cfg["epochs"]))]
+        )[: total_steps * batch_size]
+        batch_idx[f] = tr_idx[order].reshape(total_steps, batch_size)
+        val_idx[f] = np.concatenate([folds[f], np.full(pad, folds[f][0])])
+        val_weight[f] = np.concatenate(
+            [np.ones(fold_size, np.float32), np.zeros(pad, np.float32)]
+        )
+    return perm, batch_idx, val_idx, val_weight, steps_per_epoch, eval_bs
+
+
 def _local_share(mesh: Optional[Mesh], masks, hashes: np.ndarray, batch_idx: np.ndarray,
                  microbatch: int, device: torch.device):
     """This rank's masks (on ``device``), slot hashes, batch rows and
@@ -1348,40 +1391,9 @@ class GeneticCnnModel(GentunModel):
             cfg, genomes)
 
         kfold = cfg["kfold"]
-        n = x.shape[0]
-        if kfold < 2:
-            raise ValueError("kfold must be >= 2")
-        fold_size = n // kfold
-        if fold_size == 0:
-            raise ValueError(f"kfold={kfold} exceeds dataset size {n}")
-        # Host-side RNG exactly as the reference draws it: the same seed gives
-        # the same fold permutation and the same batch orders.
-        n_use = fold_size * kfold
-        rng = np.random.default_rng(cfg["seed"])
-        perm = rng.permutation(n)[:n_use]
-        folds = np.arange(n_use, dtype=np.int32).reshape(kfold, fold_size)
-
-        batch_size = min(cfg["batch_size"], n_use - fold_size)
-        n_tr = n_use - fold_size
-        steps_per_epoch = max(n_tr // batch_size, 1)
-        total_steps = sum(cfg["epochs"]) * steps_per_epoch
-        eval_bs, n_val_padded = _eval_batch_size(batch_size, fold_size)
-        pad = n_val_padded - fold_size
-        _account_sharded_batch(cfg, mesh, batch_size, total_steps * kfold)
-
-        batch_idx = np.zeros((kfold, total_steps, batch_size), dtype=np.int64)
-        val_idx = np.zeros((kfold, n_val_padded), dtype=np.int64)
-        val_weight = np.zeros((kfold, n_val_padded), dtype=np.float32)
-        for f in range(kfold):
-            tr_idx = np.concatenate([folds[g] for g in range(kfold) if g != f])
-            order = np.concatenate(
-                [rng.permutation(n_tr) for _ in range(sum(cfg["epochs"]))]
-            )[: total_steps * batch_size]
-            batch_idx[f] = tr_idx[order].reshape(total_steps, batch_size)
-            val_idx[f] = np.concatenate([folds[f], np.full(pad, folds[f][0])])
-            val_weight[f] = np.concatenate(
-                [np.ones(fold_size, np.float32), np.zeros(pad, np.float32)]
-            )
+        perm, batch_idx, val_idx, val_weight, steps_per_epoch, eval_bs = _cv_indices(
+            cfg, x.shape[0])
+        _account_sharded_batch(cfg, mesh, batch_idx.shape[2], batch_idx.shape[1] * kfold)
 
         masks, local, batch_idx, batch_rows = _local_share(
             mesh, masks, hashes, batch_idx, cfg["microbatch"], device)

@@ -23,7 +23,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Type
 
 import numpy as np
 
-from .individuals import Individual
+from .individuals import Individual, _freeze
 from .telemetry import lineage as _lineage
 from .telemetry import spans as _tele
 from .telemetry.registry import get_registry as _get_registry
@@ -49,6 +49,12 @@ def _compile_bucket(n: int) -> int:
     while b < n:  # numerically distinct (see models/cnn._pop_bucket)
         b *= 2
     return b
+
+
+def _raw_genes(ind: Individual):
+    """An individual's genes, bit for bit, as a hashable value (arrays and
+    tuples of the same bits compare equal)."""
+    return _freeze({k: np.asarray(v).tolist() for k, v in ind.get_genes().items()})
 
 
 class Population:
@@ -289,9 +295,7 @@ class Population:
                         start_monotonic=t_train0 + i * share)
             if batched_ok:
                 for ind in spec:
-                    key = self._safe_cache_key(ind)
-                    if key is not None:
-                        self.fitness_cache[key] = ind.get_fitness()
+                    self._record_speculative(ind)
             trained += len(reps)
             self._publish_group(group, reps)
         return trained
@@ -423,15 +427,48 @@ class Population:
         return key
 
     def _fill_from_cache(self, pending: List[Individual]) -> List[Individual]:
-        """Assign cached fitnesses; return the individuals still unevaluated."""
+        """Assign cached fitnesses; return the individuals still unevaluated.
+
+        An entry a speculative job measured answers only the genome it
+        trained: a cache key collapses isomorphic genomes, but a fitness is
+        a function of the RAW genome (its init and dropout streams are
+        seeded from the genome's content), so an isomorphic relabeling would
+        get another genome's number and the search would differ from one
+        without speculation.  The first pending individual of a key decides
+        for all of that key, as the representative that would train does;
+        a mismatch trains, and its result replaces the entry.
+        """
+        origins = self._speculative_origins()
         remaining: List[Individual] = []
+        decided: Dict[Any, bool] = {}
         for ind in pending:
             key = self._safe_cache_key(ind)
             if key is not None and key in self.fitness_cache:
-                ind.set_fitness(self.fitness_cache[key])
-            else:
-                remaining.append(ind)
+                origin = origins.get(key)
+                if origin is None or decided.setdefault(key, _raw_genes(ind) == origin):
+                    ind.set_fitness(self.fitness_cache[key])
+                    continue
+            remaining.append(ind)
+        for key, adopted in decided.items():
+            if adopted:  # now the search's own measurement of this key
+                origins.pop(key, None)
         return remaining
+
+    def _speculative_origins(self) -> Dict[Any, Any]:
+        """Cache keys whose entry a speculative job measured → the raw genes
+        it trained (shared across generations like the cache itself)."""
+        origins = getattr(self, "_spec_origin", None)
+        if origins is None:
+            origins = self._spec_origin = {}
+        return origins
+
+    def _record_speculative(self, ind: Individual) -> None:
+        """Cache a speculative individual's fitness under its key, marked
+        as answering its own raw genes only."""
+        key = self._safe_cache_key(ind)
+        if key is not None:
+            self.fitness_cache[key] = ind.get_fitness()
+            self._speculative_origins()[key] = _raw_genes(ind)
 
     @staticmethod
     def _group_by_params(pending: List[Individual]) -> List[List[Individual]]:
@@ -439,8 +476,6 @@ class Population:
         shared config per compiled program — same grouping the distributed
         worker applies, ``distributed/client.py``).  Keys via ``_freeze``:
         collision-free even for numpy-array params, unlike ``repr``."""
-        from .individuals import _freeze
-
         groups: Dict[Any, List[Individual]] = {}
         for ind in pending:
             try:
@@ -467,10 +502,12 @@ class Population:
 
     def _publish_group(self, group: List[Individual], reps: List[Individual]) -> None:
         """Store representatives' results in the cache; fan out to duplicates."""
+        origins = self._speculative_origins()
         for ind in reps:
             key = self._safe_cache_key(ind)
             if key is not None:
                 self.fitness_cache[key] = ind.get_fitness()
+                origins.pop(key, None)
         for ind in group:
             if not ind.fitness_evaluated:
                 ind.set_fitness(self.fitness_cache[self._safe_cache_key(ind)])
@@ -544,10 +581,12 @@ class Population:
         """Carry the speculative RNG stream across generations (like
         fitness_cache): re-seeding each clone would replay already-cached
         elite mutants until the bounded attempt budget starves and
-        speculation silently stops filling slots."""
+        speculation silently stops filling slots.  The speculative entries'
+        origins ride along with the cache they describe."""
         spec_rng = getattr(self, "_spec_rng", None)
         if spec_rng is not None:
             clone._spec_rng = spec_rng
+        clone._spec_origin = self._speculative_origins()
 
     def get_fittest(self) -> Individual:
         """Best individual under the population's direction (evaluating lazily)."""

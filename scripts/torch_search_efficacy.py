@@ -1,0 +1,606 @@
+"""Search efficacy on the card: GA against random sampling at an equal trained-architecture budget.
+
+The port's counterpart of ``scripts/search_efficacy.py``, with the same
+design, searchers, budgets, seeds and statistics: the search must FIND
+better architectures than random, not only evaluate them fast (Genetic-CNN,
+Xie & Yuille ICCV 2017; SURVEY.md §6).
+
+- Workload where architecture matters: real handwritten digits (sklearn's
+  ``load_digits`` via ``load_mnist``), few examples, deliberately tight
+  capacity, a proxy-style schedule.
+- Three searchers at the SAME budget of trained architectures:
+  ``GeneticAlgorithm`` (tournament), ``RussianRouletteGA`` (the paper's
+  selection) and a random-sampling control in equal-sized batches.
+- Several seeds each; best-so-far CV fitness at matched budget points,
+  paired per-seed statistics, and a held-out test accuracy of each run's
+  top-3 winners (``train_and_score``).
+
+Writes ``docs/TORCH_SEARCH.md`` and ``scripts/torch_search_efficacy.json``
+(with the card's name and power limit).  On the card by default;
+``--device cpu`` runs on the CPU, and ``--tiny`` is the CPU smoke (one
+seed, a budget of 8, pop 4, 150 examples, one training of one epoch over
+two folds a fitness):
+
+    python3 scripts/torch_search_efficacy.py --seeds 0 1 --budget 48
+    python3 scripts/torch_search_efficacy.py --tiny
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import bench_torch  # noqa: E402
+from gentun_tpu_torch import (  # noqa: E402
+    GeneticAlgorithm,
+    GeneticCnnIndividual,
+    Population,
+    RussianRouletteGA,
+)
+from gentun_tpu_torch.genes import genetic_cnn_genome  # noqa: E402
+from gentun_tpu_torch.models.cnn import GeneticCnnModel  # noqa: E402
+from gentun_tpu_torch.ops.dag import canonical_key  # noqa: E402
+from gentun_tpu_torch.utils.datasets import load_mnist  # noqa: E402
+from gentun_tpu_torch.utils.stats import fmt_paired, paired_row  # noqa: E402
+
+#: S=(3, 4, 5) ⇒ 3+6+10 = 19 bits ⇒ a 524k-architecture space: 100-odd
+#: random draws cover 0.02% of it, so structure exploitation (selection +
+#: crossover) has room to beat sampling — in the small S=(3, 5) space
+#: (8192) a same-budget random control ties the GA, measured (see git
+#: history of this script).
+NODES = (3, 4, 5)
+
+#: Trainings averaged into each fitness evaluation (VERDICT r4 weak #1:
+#: the r4 run's own analysis blamed single-training fitness noise —
+#: CV-optimism +0.05 vs random — for the unresolved holdout transfer, and
+#: named multi-seed averaging as the untried fix).  Set from
+#: --fitness-reps in main(); each rep is a full independent training at a
+#: derived seed (models/cnn.py fitness_reps), sharing one compiled program.
+FITNESS_REPS = 3
+#: The device every training names (``mesh``): the card unless ``main``
+#: is asked for the CPU.
+MESH = "auto"
+#: ``--tiny``'s schedule cut (one epoch, two folds); empty otherwise.
+SCHEDULE_CUT: dict = {}
+
+
+def model_params(seed: int) -> dict:
+    """Tight-capacity training config: architecture has to earn its accuracy.
+
+    lr 0.03 rather than the 0.05 of early drafts: 0.05 made individual
+    trainings diverge seed-dependently (measured holdout 0.105 vs 0.85 for
+    one genome), which injects pure noise into every searcher's fitness.
+    """
+    return dict(
+        nodes=NODES,
+        kernels_per_layer=(4, 5, 6),
+        dense_units=32,
+        kfold=3,
+        epochs=(8,),
+        learning_rate=(0.03,),
+        batch_size=64,
+        dropout_rate=0.3,
+        seed=seed,
+        fitness_reps=FITNESS_REPS,
+        mesh=MESH,
+    ) | SCHEDULE_CUT
+
+
+class TrackedGA(GeneticAlgorithm):
+    """Records (cumulative trained, best fitness) per generation, plus every
+    evaluated (genes, fitness) pair so the transfer estimator can use the
+    run's top-K architectures instead of a single winner's-curse-prone
+    top-1."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.curve: list = []
+        self.evaluated: dict = {}  # canonical genes -> (genes, fitness)
+        self._trained = 0
+
+    def evolve_population(self):
+        # Capture BEFORE reproduction replaces the population.
+        pop = self.population
+        super().evolve_population()
+        rec = self.history[-1]
+        self._trained += rec["evaluated"]
+        self.curve.append((self._trained, rec["best_fitness"]))
+        for ind in pop:
+            # Canonical ARCHITECTURE key (ops.dag): isomorphic genomes
+            # collapse, so the top-3 transfer estimator never spends its
+            # slots on the same network twice.
+            key = canonical_key(ind.get_genes(), NODES)
+            self.evaluated[key] = (ind.get_genes(), float(ind.get_fitness()))
+
+
+#: Searcher settings for THIS experiment (library defaults stay at the
+#: reference-parity values).  pop 12 with tournament size 5 and 0.015/bit
+#: mutation converges prematurely in a 19-bit space at a 120-training
+#: budget — measured: the tournament curve went flat from budget 48 while
+#: still holding budget, losing to random at 96+.  Moderate pressure
+#: (t=3) and ~0.8 expected flips/child (0.04/bit) keep exploration alive
+#: at this tiny budget; both GA variants get identical operators.
+MUTATION_RATE = 0.04
+TOURNAMENT_SIZE = 3
+
+
+def run_ga(algo_cls, seed: int, budget: int, pop_size: int, x, y):
+    pop = Population(
+        GeneticCnnIndividual,
+        x_train=x,
+        y_train=y,
+        size=pop_size,
+        seed=seed,
+        mutation_rate=MUTATION_RATE,
+        additional_parameters=model_params(seed),
+    )
+    ga = algo_cls(pop, seed=seed, tournament_size=TOURNAMENT_SIZE)
+    while ga._trained < budget:
+        ga.evolve_population()
+    # Winners come from the recorded evaluations, NOT a final
+    # get_fittest(): the current population holds unevaluated offspring,
+    # and evaluating them would spend budget the random control doesn't
+    # get.  (Both searchers may overshoot `budget` by < pop within their
+    # last batch — same granularity, so the comparison stays fair.)
+    ranked = sorted(ga.evaluated.values(), key=lambda gf: gf[1], reverse=True)
+    return ga.curve, [g for g, _ in ranked[:3]], float(ranked[0][1]), len(ga.evaluated)
+
+
+def run_random(seed: int, budget: int, batch: int, x, y) -> list:
+    """Random-sampling control: unique genomes, equal-sized evaluation
+    batches (the GA's per-generation batching, so hardware efficiency is
+    identical), best-so-far tracking."""
+    rng = np.random.default_rng(seed)
+    spec = genetic_cnn_genome(NODES)
+    params = model_params(seed)
+    seen, curve, evaluated = set(), [], {}
+    best_fit, trained = -np.inf, 0
+    while trained < budget:
+        genomes = []
+        while len(genomes) < batch:
+            g = spec.sample(rng)
+            key = tuple(sorted((k, tuple(v)) for k, v in g.items()))
+            if key not in seen:
+                seen.add(key)
+                genomes.append(g)
+        accs = GeneticCnnModel.cross_validate_population(x, y, genomes, **params)
+        trained += len(genomes)
+        for g, a in zip(genomes, accs):
+            key = canonical_key(g, NODES)
+            # Isomorphic re-draws keep the FIRST measurement — exactly the
+            # GA arms' policy (their shared fitness cache answers later
+            # duplicates with the first representative's fitness), so
+            # neither arm gets a max-of-k noise advantage in the ranking.
+            evaluated.setdefault(key, (g, float(a)))
+        best_fit = max(best_fit, float(np.max(accs)))
+        curve.append((trained, best_fit))
+    ranked = sorted(evaluated.values(), key=lambda gf: gf[1], reverse=True)
+    return curve, [g for g, _ in ranked[:3]], best_fit, len(evaluated)
+
+
+def best_at(curve, b: int) -> float:
+    """Best fitness achieved within budget b."""
+    vals = [f for t, f in curve if t <= b]
+    return max(vals) if vals else float("nan")
+
+
+def paired_deltas(results: dict, arm: str, value_fn) -> np.ndarray:
+    """Per-seed (arm − random) deltas, matched by seed (VERDICT r3 item 2).
+
+    Every searcher ran the same seeds on the same data, so the paired
+    statistic removes the between-seed workload variance that the marginal
+    mean ± spread tables drown the effect in.
+    """
+    rand = {r["seed"]: value_fn(r) for r in results["random"]}
+    return np.asarray(
+        [value_fn(r) - rand[r["seed"]] for r in results[arm] if r["seed"] in rand],
+        dtype=np.float64,
+    )
+
+
+def holdout_score(genes, x, y, x_te, y_te, seed: int, reps: int = 3) -> float:
+    """Mean holdout accuracy over ``reps`` independent trainings.
+
+    A single training at this deliberately-aggressive lr occasionally
+    diverges (measured: the same genome scored 0.105 with one seed and
+    0.71-0.85 with three others), so one run is too noisy to compare
+    searchers on; the mean over a few seeds is the honest estimator.
+    """
+    accs = []
+    for r in range(reps):
+        p = model_params(seed)
+        p["seed"] = 1000 + 101 * seed + r
+        # The holdout estimator keeps its own explicit multi-seed loop
+        # (distinct shuffle orders per rep, not just distinct inits).
+        p["fitness_reps"] = 1
+        accs.append(float(GeneticCnnModel.train_and_score(x, y, x_te, y_te, [genes], **p)[0]))
+    return float(np.mean(accs))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    # Defaults ARE the committed SEARCH.md's configuration, so the bare
+    # reproduce command regenerates the shipped artifact.
+    ap.add_argument("--budget", type=int, default=240, help="trained architectures per run")
+    ap.add_argument("--pop", type=int, default=12)
+    ap.add_argument("--seeds", type=int, nargs="+", default=list(range(10)))
+    ap.add_argument("--n-train", type=int, default=700)
+    ap.add_argument("--n-test", type=int, default=400)
+    ap.add_argument("--fitness-reps", type=int, default=3,
+                    help="independent trainings averaged into each fitness "
+                         "evaluation (the r5 noise-reduced protocol; 1 "
+                         "reproduces the r4 single-training protocol)")
+    ap.add_argument("--out", default=None,
+                    help="output markdown path (default: docs/TORCH_SEARCH.md)")
+    ap.add_argument("--json-out", default=None,
+                    help="the JSON sidecar (default: scripts/torch_search_efficacy.json)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--tiny", action="store_true",
+                    help="CPU smoke: seed 0, budget 8, pop 4, 100+50 examples, "
+                         "one training a fitness of one epoch over two folds")
+    ap.add_argument("--analyze-only", action="store_true",
+                    help="recompute SEARCH.md (incl. paired statistics) from "
+                         "the existing JSON sidecar without retraining")
+    ap.add_argument("--arms", nargs="+", default=["tournament", "roulette", "random"],
+                    choices=["tournament", "roulette", "random"],
+                    help="searcher arms to run (use with --merge to extend "
+                         "only the statistically unresolved comparisons)")
+    ap.add_argument("--merge", action="store_true",
+                    help="append new arm×seed runs to the existing sidecar "
+                         "(already-present arm×seed combos are skipped) "
+                         "instead of starting a fresh measurement")
+    args = ap.parse_args(argv)
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out_md = args.out or os.path.join(repo, "docs", "TORCH_SEARCH.md")
+    sidecar = args.json_out or os.path.join(repo, "scripts", "torch_search_efficacy.json")
+    global MESH, SCHEDULE_CUT
+    import torch
+
+    cpu = args.tiny or args.device == "cpu"
+    if not cpu and not args.analyze_only and not torch.cuda.is_available():
+        print("torch_search_efficacy: no CUDA device; pass --device cpu (or --tiny) to run "
+              "on the CPU", file=sys.stderr)
+        return 2
+    MESH = "cpu" if cpu else "auto"
+    if args.tiny:
+        args.seeds, args.budget, args.pop = [0], 8, 4
+        args.n_train, args.n_test, args.fitness_reps = 100, 50, 1
+        SCHEDULE_CUT = {"kfold": 2, "epochs": (1,)}
+
+    if args.analyze_only:
+        import types
+
+        with open(sidecar) as f:
+            results = json.load(f)
+        cfg = results["config"]
+        saved = types.SimpleNamespace(**{**vars(args), **{k: cfg[k] for k in
+                                       ("budget", "pop", "seeds", "n_train", "n_test") if k in cfg}})
+        write_markdown(results, out_md, saved)
+        print(f"wrote {out_md} (analysis of existing sidecar)")
+        return 0
+
+    global FITNESS_REPS
+    FITNESS_REPS = max(1, int(args.fitness_reps))
+    # The artifact must record the protocol that RAN, not the raw flag
+    # (--fitness-reps 0 clamps to 1; vars(args) feeds results["config"]).
+    args.fitness_reps = FITNESS_REPS
+
+    # One dataset for everyone; a disjoint holdout scores the winners.
+    x_all, y_all, meta = load_mnist(n=args.n_train + args.n_test, seed=123)
+    x, y = x_all[: args.n_train], y_all[: args.n_train]
+    x_te, y_te = x_all[args.n_train :], y_all[args.n_train :]
+
+    t0 = time.time()
+    if set(args.arms) != {"tournament", "roulette", "random"} and not args.merge:
+        # A subset run without --merge would clobber the committed sidecar
+        # with partial data and then crash write_markdown on the absent arms.
+        raise SystemExit("--arms with a subset of searchers requires --merge")
+    if args.merge and os.path.exists(sidecar):
+        with open(sidecar) as f:
+            results = json.load(f)
+        # Refuse to mix measurements from different experimental setups —
+        # the paired statistics assume one workload.  A key the old sidecar
+        # never recorded is itself a setup mismatch: we cannot prove the
+        # old runs used this invocation's value.
+        pcfg = results["config"]
+        for k in ("budget", "pop", "n_train", "n_test", "fitness_reps"):
+            if pcfg.get(k, "<absent>") != getattr(args, k):
+                raise SystemExit(
+                    f"--merge: config mismatch on {k}: sidecar has "
+                    f"{pcfg.get(k, '<absent>')}, this invocation has {getattr(args, k)}"
+                )
+    else:
+        results = {"config": vars(args) | {"dataset": meta["source"], "nodes": list(NODES)}}
+    results["backend"] = bench_torch.card_line(cpu)
+    done = {(n, r["seed"]) for n in ("tournament", "roulette", "random")
+            for r in results.get(n, [])}
+    from gentun_tpu_torch.utils.fitness_store import FITNESS_PROTOCOL
+
+    prev_wall = float(results.get("total_wall_s", 0.0))
+
+    def reconcile():
+        """Keep every on-disk snapshot self-consistent: seed union and
+        running wall time, so a killed run (or --analyze-only on its
+        snapshot) never sees records the header doesn't account for."""
+        results["config"]["seeds"] = sorted(
+            {r["seed"] for n in ("tournament", "roulette", "random")
+             for r in results.get(n, [])}
+        )
+        results["total_wall_s"] = round(prev_wall + (time.time() - t0), 1)
+
+    for seed in args.seeds:
+        for name in args.arms:
+            if (name, seed) in done:
+                print(f"[{name} seed={seed}] already in sidecar — skipped", flush=True)
+                continue
+            t1 = time.time()
+            if name == "random":
+                curve, top_genomes, best_fit, n_distinct = run_random(seed, args.budget, args.pop, x, y)
+            else:
+                cls = TrackedGA if name == "tournament" else _TrackedRoulette
+                curve, top_genomes, best_fit, n_distinct = run_ga(cls, seed, args.budget, args.pop, x, y)
+            # Transfer estimator: mean holdout over the run's top-3 CV
+            # architectures (x3 training seeds each) — top-1 alone is a
+            # winner's-curse magnet at larger budgets.
+            held = float(np.mean(
+                [holdout_score(g, x, y, x_te, y_te, seed) for g in top_genomes]
+            ))
+            results.setdefault(name, []).append(
+                {
+                    "seed": seed,
+                    "curve": curve,
+                    "best_cv": best_fit,
+                    "holdout": held,
+                    "n_distinct": n_distinct,
+                    "top_genomes": [{k: list(v) for k, v in g.items()} for g in top_genomes],
+                    "wall_s": round(time.time() - t1, 1),
+                    "rng_protocol": FITNESS_PROTOCOL,
+                }
+            )
+            print(f"[{name} seed={seed}] best_cv={best_fit:.4f} holdout={held:.4f} "
+                  f"({time.time() - t1:.0f}s)", flush=True)
+            reconcile()
+            with open(sidecar, "w") as f:  # incremental: arm×seed = minutes of the card
+                json.dump(results, f, indent=1)
+
+    # Per-arm seed sets may now differ (targeted --merge extensions); the
+    # header and the paired stats read what is actually there.
+    reconcile()
+    with open(sidecar, "w") as f:
+        json.dump(results, f, indent=1)
+    write_markdown(results, out_md, args)
+    print(f"wrote {out_md}")
+    return 0
+
+
+class _TrackedRoulette(TrackedGA, RussianRouletteGA):
+    pass
+
+
+def write_markdown(results: dict, out_md: str, args) -> None:
+    budgets = [args.pop * k for k in (2, 4, 6, 8) if args.pop * k <= args.budget]
+    if args.budget not in budgets:
+        budgets.append(args.budget)
+    lines = [
+        "# Search efficacy of the PyTorch port: GA vs random at equal trained-architecture budget",
+        "",
+        "Evidence that the genetic search FINDS architectures, not just",
+        "evaluates them fast (the Genetic-CNN paper's claim; the JAX",
+        "package's run is `SEARCH.md`).  All searchers pay the same number of architecture",
+        f"trainings; dataset: {results['config']['dataset']},",
+        f"{args.n_train} train / {args.n_test} holdout examples,",
+        f"S={tuple(results['config']['nodes'])} "
+        f"(search space 2^{sum(k * (k - 1) // 2 for k in results['config']['nodes'])}),",
+        "deliberately tight capacity (kernels (4, 5, 6), dense 32) so wiring",
+        "matters.  GA settings for this tiny-budget regime: mutation",
+        f"{MUTATION_RATE}/bit "
+        f"(≈{sum(k * (k - 1) // 2 for k in NODES) * MUTATION_RATE:.1f} "
+        "expected flips/child),",
+        f"tournament size {TOURNAMENT_SIZE}; the library defaults keep the",
+        "reference-parity values (0.015, 5).",
+        f"Fitness protocol: each evaluation averages "
+        f"{results['config'].get('fitness_reps', 1)} independent training(s)"
+        " (models/cnn.py `fitness_reps`).",
+        "Full curves: `scripts/torch_search_efficacy.json`;",
+        "reproduce: `python3 scripts/torch_search_efficacy.py` with the",
+        f"config's budget {args.budget}, pop {args.pop} and seeds "
+        f"{results['config']['seeds']}.",
+        "",
+        "## Best CV fitness vs budget (mean ± spread over seeds "
+        f"{results['config']['seeds']})",
+    ]
+    counts = {n: len(results.get(n, [])) for n in ("tournament", "roulette", "random")}
+    if len(set(counts.values())) > 1:
+        lines += [
+            "",
+            "Arms carry different seed counts (targeted `--merge` extensions "
+            "of the unresolved comparisons): "
+            + ", ".join(f"{n} n={c}" for n, c in counts.items())
+            + ".  Paired rows below state their own n; marginal cells pool "
+            "whatever seeds the arm has.",
+        ]
+    lines += [
+        "",
+        "| trained architectures | " + " | ".join(
+            ["tournament GA", "roulette GA (paper)", "random control"]) + " |",
+        "|---|---|---|---|",
+    ]
+    for b in budgets:
+        row = [str(b)]
+        for name in ("tournament", "roulette", "random"):
+            vals = [best_at(r["curve"], b) for r in results[name]]
+            row.append(f"{np.mean(vals):.4f} ± {np.std(vals):.4f}")
+        lines.append("| " + " | ".join(row) + " |")
+    lines += [
+        "",
+        "## Transfer: winners on the held-out test set",
+        "",
+        "Per run: mean holdout accuracy of the TOP-3 CV architectures, each",
+        "retrained 3× (9 trainings per cell per seed) — a single top-1",
+        "winner is a winner's-curse magnet at these budgets.",
+        "",
+    ]
+    lines.append("| searcher | holdout accuracy (mean ± spread) | best single run |")
+    lines.append("|---|---|---|")
+    holdout_mean = {}
+    for name in ("tournament", "roulette", "random"):
+        hs = [r["holdout"] for r in results[name]]
+        holdout_mean[name] = np.mean(hs)
+        lines.append(f"| {name} | {np.mean(hs):.4f} ± {np.std(hs):.4f} | {max(hs):.4f} |")
+
+    # -- paired per-seed statistics (VERDICT r3 item 2) --------------------
+    # The marginal mean ± spread tables above drown the effect in
+    # between-seed workload variance; every searcher ran the SAME seeds on
+    # the SAME data, so the per-seed paired delta is the rigorous test.
+    lines += [
+        "",
+        "## Paired per-seed statistics (searcher − random, matched seeds)",
+        "",
+        "Mean per-seed delta with a seeded 10k-resample bootstrap 95% CI,",
+        "win rate over non-tied seeds, and a two-sided exact sign test.",
+        "",
+        "| comparison | mean Δ [95% CI] | wins | sign-test p |",
+        "|---|---|---|---|",
+    ]
+    stats: dict = {}
+    for arm in ("tournament", "roulette"):
+        for b in budgets:
+            d = paired_deltas(results, arm, lambda r, b=b: best_at(r["curve"], b))
+            stats[(arm, "cv", b)] = paired_row(d)
+            lines.append(f"| {arm} − random, best CV @ {b} | " + fmt_paired(stats[(arm, 'cv', b)]) + " |")
+    for arm in ("tournament", "roulette"):
+        d = paired_deltas(results, arm, lambda r: r["holdout"])
+        stats[(arm, "holdout")] = paired_row(d)
+        lines.append(f"| {arm} − random, holdout | " + fmt_paired(stats[(arm, 'holdout')]) + " |")
+
+    # -- CV-optimism diagnostic: does a variant's selection overfit the CV
+    # fitness noise?  (best-CV minus holdout of the same run's winners.)
+    lines += [
+        "",
+        "CV-optimism (best CV − holdout of the same run, mean over seeds —",
+        "how much of the CV advantage is selection exploiting fitness noise):",
+        "",
+    ]
+    optimism = {}
+    for name in ("tournament", "roulette", "random"):
+        o = [r["best_cv"] - r["holdout"] for r in results[name]]
+        optimism[name] = float(np.mean(o))
+        nd = [r.get("n_distinct") for r in results[name] if r.get("n_distinct") is not None]
+        nd_txt = f", {np.mean(nd):.0f} distinct architectures/run" if nd else ""
+        lines.append(f"- {name}: {np.mean(o):+.4f} ± {np.std(o):.4f}{nd_txt}")
+
+    # -- unhedged conclusions, driven by the paired statistics -------------
+    final_b = budgets[-1]
+    concl = []
+    for arm in ("tournament", "roulette"):
+        cv_s = stats[(arm, "cv", final_b)]
+        ho_s = stats[(arm, "holdout")]
+        if cv_s["ci"][0] > 0:
+            cv_txt = (
+                f"{arm} beats random on best CV at the full budget "
+                f"(mean Δ {cv_s['mean']:+.4f}, 95% CI excludes zero, "
+                f"wins {cv_s['wins']}/{cv_s['n'] - cv_s['ties']}, sign p={cv_s['p_sign']:.3f})"
+            )
+        elif cv_s["mean"] > 0:
+            cv_txt = (
+                f"{arm} is ahead of random on best CV at the full budget "
+                f"(mean Δ {cv_s['mean']:+.4f}) but the 95% CI "
+                f"[{cv_s['ci'][0]:+.4f}, {cv_s['ci'][1]:+.4f}] still includes zero at "
+                f"n={cv_s['n']} seeds — NOT yet a resolved win"
+            )
+        else:
+            cv_txt = f"{arm} does NOT beat random on best CV (mean Δ {cv_s['mean']:+.4f}) — a negative result"
+        if ho_s["ci"][0] > 0:
+            ho_txt = f"its advantage transfers to holdout (Δ {ho_s['mean']:+.4f}, CI excludes zero)"
+        elif ho_s["ci"][1] < 0:
+            ho_txt = (
+                f"its holdout transfer is NEGATIVE (Δ {ho_s['mean']:+.4f}, CI excludes zero): "
+                f"the CV advantage does not survive retraining — a real deficit, not noise"
+            )
+        else:
+            ho_txt = (
+                f"holdout transfer is unresolved at n={ho_s['n']} "
+                f"(Δ {ho_s['mean']:+.4f}, CI [{ho_s['ci'][0]:+.4f}, {ho_s['ci'][1]:+.4f}])"
+            )
+        concl.append(f"**{arm}**: {cv_txt}; {ho_txt}.")
+    if optimism["roulette"] > optimism["tournament"] + 0.01 and stats[("roulette", "holdout")]["mean"] < 0:
+        concl.append(
+            "The roulette deficit pattern matches CV-noise overfitting: its "
+            f"CV-optimism ({optimism['roulette']:+.4f}) exceeds tournament's "
+            f"({optimism['tournament']:+.4f}), i.e. fitness-proportional "
+            "selection re-amplifies lucky fitness measurements that "
+            "tournament's rank-based selection is insensitive to."
+        )
+    both_unresolved = all(
+        stats[(a, "holdout")]["ci"][0] <= 0 <= stats[(a, "holdout")]["ci"][1]
+        for a in ("tournament", "roulette")
+    )
+    if both_unresolved:
+        # Say plainly what the numbers show instead of hedging: when BOTH
+        # variants' winners carry more CV-optimism than random's, the CV
+        # advantage is partly selection-on-noise, and the minimal
+        # detectable transfer effect quantifies why holdout can't separate.
+        ho_sds = [
+            float(np.std(paired_deltas(results, a, lambda r: r["holdout"])))
+            for a in ("tournament", "roulette")
+        ]
+        n_seeds = stats[("tournament", "holdout")]["n"]
+        mde = 1.96 * max(ho_sds) / np.sqrt(n_seeds)
+        gap_t = optimism["tournament"] - optimism["random"]
+        gap_r = optimism["roulette"] - optimism["random"]
+        concl.append(
+            "Transfer verdict, plainly: on this workload NEITHER variant's CV "
+            "advantage measurably transfers to holdout, and the CV-optimism "
+            f"gap vs random (tournament {gap_t:+.4f}, roulette {gap_r:+.4f}) "
+            "shows why — picking top-3 by CV on noisy fitness measurements "
+            "inflates the winners' CV scores by roughly the size of the GA "
+            "advantage itself.  The minimal transfer effect detectable here "
+            f"is ≈{mde:.3f} (paired holdout sd {max(ho_sds):.3f}, n={n_seeds}); "
+            "any true difference is below that floor.  The honest claim this "
+            "artifact supports is therefore: the GA finds higher-CV-fitness "
+            "architectures than random at equal budget (CI-resolved), and at "
+            "this tiny-budget, high-noise regime that advantage is consumed "
+            "by selection noise rather than transferring — consistent with "
+            "the Genetic-CNN paper operating at ~100× this training budget "
+            "where fitness noise is far smaller."
+        )
+    if results["config"].get("fitness_reps", 1) > 1:
+        # State what the averaged protocol measured, signs included.
+        concl.append(
+            f"Protocol note: under this {results['config']['fitness_reps']}-training-"
+            "averaged protocol the measured CV-optimism is "
+            + ", ".join(f"{n} {optimism[n]:+.4f}" for n in ("tournament", "roulette", "random"))
+            + "."
+        )
+    lines += [
+        "",
+        "**Takeaway:** " + "  ".join(concl),
+        "",
+        f"Per-seed curves: JSON sidecar.  Total wall time: "
+        f"{results.get('total_wall_s', '<mid-run snapshot>')}s on "
+        f"{results.get('backend') or 'unrecorded backend'}.",
+        "",
+    ]
+    protos = sorted({str(r.get("rng_protocol"))
+                     for n in ("tournament", "roulette", "random")
+                     for r in results.get(n, [])})
+    if len(protos) > 1:
+        lines += [
+            f"Protocol provenance: records span fitness protocols {protos}; "
+            "each seed's arms run under one protocol.",
+            "",
+        ]
+    with open(out_md, "w") as f:
+        f.write("\n".join(lines))
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,267 @@
+"""``stage_exit_conv`` on the card: the paired study, with statistical power.
+
+The port's counterpart of ``scripts/stage_exit_conv_study.py``, with the
+same genomes, seeds, workloads, paired statistics and decision rule.  Xie &
+Yuille (Genetic CNN, ICCV 2017) apply a Conv+ReLU at each stage's default
+OUTPUT node after summing its inputs; the package's default is a bare sum
+(``stage_exit_conv=False``).  Protocol:
+
+- **≥20 shared random genomes** per workload, identical for both variants;
+- **3 training seeds** per (workload, variant), averaged per genome;
+- **paired per-genome statistics**: per-genome delta (paper − bare sum)
+  on CV fitness and on holdout accuracy, with a seeded bootstrap 95% CI
+  and an exact sign test (``gentun_tpu_torch.utils.stats``);
+- **non-saturating workloads**: real digits, plus synthetic CIFAR-shaped
+  data whose noise keeps holdout well under 1.0.
+
+Holdout is scored for EVERY genome (one batched ``train_and_score`` per
+variant × seed).  Writes ``docs/TORCH_STAGE_EXIT_CONV.md`` and
+``scripts/torch_stage_exit_conv_study.json`` (with the card's name and
+power limit).  On the card by default; ``--tiny`` is the CPU smoke:
+
+    python3 scripts/torch_stage_exit_conv_study.py            # full study
+    python3 scripts/torch_stage_exit_conv_study.py --pop 4 --seeds 0 --tiny  # smoke
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import bench_torch  # noqa: E402
+from gentun_tpu_torch.genes import genetic_cnn_genome  # noqa: E402
+from gentun_tpu_torch.models.cnn import GeneticCnnModel  # noqa: E402
+from gentun_tpu_torch.utils.datasets import load_mnist, synthetic_images  # noqa: E402
+from gentun_tpu_torch.utils.stats import fmt_paired, paired_row  # noqa: E402
+
+FULL_SCHEDULE = dict(kfold=5, epochs=(20, 4, 1), learning_rate=(1e-2, 1e-3, 1e-4))
+
+
+def workloads(args):
+    x, y, meta = load_mnist(n=1400, seed=7)
+    digits_cfg = dict(
+        nodes=(3, 5), kernels_per_layer=(20, 50), dense_units=500,
+        batch_size=128, **FULL_SCHEDULE,
+    )
+    # Non-saturating synthetic workload: higher prototype noise than the
+    # bench generator (which saturates at holdout 1.0); --noise is
+    # calibrated so holdout lands well below 1.
+    xc, yc, _ = synthetic_images(6000, (32, 32, 3), 10, noise=args.noise, seed=11)
+    cifar_cfg = dict(
+        nodes=(3, 4, 5), kernels_per_layer=(32, 64, 128), dense_units=256,
+        batch_size=256, compute_dtype="bfloat16", **FULL_SCHEDULE,
+    )
+    if args.tiny:  # CPU smoke: shrink models, keep the protocol identical
+        digits_cfg.update(kernels_per_layer=(4, 4), dense_units=16,
+                          kfold=2, epochs=(1,), learning_rate=(0.01,), batch_size=32)
+        cifar_cfg.update(kernels_per_layer=(4, 4, 4), dense_units=16,
+                         kfold=2, epochs=(1,), learning_rate=(0.01,), batch_size=32)
+        x, y = x[:128], y[:128]
+        xc, yc = xc[:128], yc[:128]
+    n_tr = int(len(x) * 5 / 7)
+    yield "digits (real)", digits_cfg, (x[:n_tr], y[:n_tr], x[n_tr:], y[n_tr:])
+    n_trc = int(len(xc) * 5 / 6)
+    yield (
+        f"synthetic CIFAR-10 (noise {args.noise})",
+        cifar_cfg,
+        (xc[:n_trc], yc[:n_trc], xc[n_trc:], yc[n_trc:]),
+    )
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--pop", type=int, default=20, help="shared genomes per workload")
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2],
+                    help="training seeds averaged per genome")
+    ap.add_argument("--noise", type=float, default=2.0,
+                    help="synthetic-workload prototype noise (raise until holdout ≪ 1)")
+    ap.add_argument("--tiny", action="store_true", help="CPU smoke shapes (implies --device cpu)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--out", default=None, help="markdown path (default docs/TORCH_STAGE_EXIT_CONV.md)")
+    ap.add_argument("--json-out", default=None,
+                    help="record path (default scripts/torch_stage_exit_conv_study.json)")
+    args = ap.parse_args(argv)
+    import torch
+
+    cpu = args.tiny or args.device == "cpu"
+    if not cpu and not torch.cuda.is_available():
+        print("torch_stage_exit_conv_study: no CUDA device; pass --device cpu (or --tiny) "
+              "to run on the CPU", file=sys.stderr)
+        return 2
+    mesh = "cpu" if cpu else "auto"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out_md = args.out or os.path.join(repo, "docs", "TORCH_STAGE_EXIT_CONV.md")
+
+    t_start = time.time()
+    raw: dict = {"config": {"pop": args.pop, "seeds": args.seeds, "noise": args.noise,
+                            "tiny": args.tiny},
+                 "card": bench_torch.card_line(cpu)}
+    tables = []
+    decisions = []
+    for name, params, (x, y, x_te, y_te) in workloads(args):
+        rng = np.random.default_rng(5)
+        spec = genetic_cnn_genome(tuple(params["nodes"]))
+        genomes = [spec.sample(rng) for _ in range(args.pop)]
+        per_variant = {}
+        for variant in (False, True):
+            cv_runs, ho_runs, wall = [], [], 0.0
+            for seed in args.seeds:
+                cfg = dict(params, stage_exit_conv=variant, seed=seed, mesh=mesh)
+                t0 = time.time()
+                cv = np.asarray(GeneticCnnModel.cross_validate_population(x, y, genomes, **cfg))
+                ho_cfg = {k: v for k, v in cfg.items() if k != "kfold"}
+                ho = np.asarray(GeneticCnnModel.train_and_score(x, y, x_te, y_te, genomes, **ho_cfg))
+                wall += time.time() - t0
+                cv_runs.append(cv)
+                ho_runs.append(ho)
+                print(f"[{name} exit_conv={variant} seed={seed}] "
+                      f"cv_mean={cv.mean():.4f} holdout_mean={ho.mean():.4f}", flush=True)
+            per_variant[variant] = {
+                "cv": np.mean(cv_runs, axis=0),    # per-genome, seed-averaged
+                "ho": np.mean(ho_runs, axis=0),
+                "wall_s": wall,
+            }
+            raw[f"{name}|exit_conv={variant}"] = {
+                "cv_per_genome_seed_mean": [round(float(a), 4) for a in per_variant[variant]["cv"]],
+                "holdout_per_genome_seed_mean": [round(float(a), 4) for a in per_variant[variant]["ho"]],
+                "wall_s": round(wall, 1),
+            }
+        cv_delta = per_variant[True]["cv"] - per_variant[False]["cv"]
+        ho_delta = per_variant[True]["ho"] - per_variant[False]["ho"]
+        cv_stats, ho_stats = paired_row(cv_delta), paired_row(ho_delta)
+        raw[f"{name}|paired"] = {"cv": cv_stats, "holdout": ho_stats}
+        tables.append((name, per_variant, cv_stats, ho_stats))
+        decisions.append((name, cv_stats, ho_stats))
+
+    lines = [
+        "# stage_exit_conv on the PyTorch port: measured decision",
+        "",
+        "Xie & Yuille apply Conv+ReLU after the default output node's sum;",
+        "the package defaults to a bare sum.  Protocol (the reference study's,",
+        f"`docs/STAGE_EXIT_CONV.md`): {args.pop} shared random genomes per workload, "
+        f"{len(args.seeds)}",
+        "training seeds averaged per genome, reference-default schedule",
+        "(kfold=5, epochs=(20,4,1)), holdout scored for EVERY genome, and",
+        "the decision read from PAIRED per-genome deltas (paper − bare sum)",
+        "with a seeded bootstrap 95% CI and an exact sign test.",
+        f"Reproduce: `python3 scripts/torch_stage_exit_conv_study.py --noise "
+        f"{args.noise} --pop {args.pop} --seeds {' '.join(map(str, args.seeds))}"
+        f"{' --tiny' if args.tiny else ''}` (the PyTorch port on {raw['card']}; --noise was "
+        "calibrated so holdout sits well under 1.0).",
+        "",
+        "| workload | variant | CV mean | holdout mean | wall s |",
+        "|---|---|---|---|---|",
+    ]
+    for name, pv, _, _ in tables:
+        for variant in (False, True):
+            v = pv[variant]
+            lines.append(
+                f"| {name} | {'ON (paper)' if variant else 'off (sum only)'} | "
+                f"{v['cv'].mean():.4f} | {v['ho'].mean():.4f} | {v['wall_s']:.0f} |"
+            )
+    lines += [
+        "",
+        "## Paired per-genome deltas (paper − bare sum)",
+        "",
+        "| workload | metric | mean Δ [95% CI] | wins | sign-test p |",
+        "|---|---|---|---|---|",
+    ]
+    for name, _, cv_s, ho_s in tables:
+        lines.append(f"| {name} | CV fitness | " + fmt_paired(cv_s) + " |")
+        lines.append(f"| {name} | holdout | " + fmt_paired(ho_s) + " |")
+
+    # Decision rule, stated before the data came in: the default follows
+    # the HOLDOUT paired comparison (what a user's final model sees).  The
+    # paper variant wins a workload if its holdout CI is entirely > 0;
+    # loses if entirely < 0; ties otherwise.  Paper becomes default only
+    # if it wins ≥1 workload and loses none.
+    wins = sum(1 for _, _, ho in decisions if ho["ci"][0] > 0)
+    losses = sum(1 for _, _, ho in decisions if ho["ci"][1] < 0)
+    if wins >= 1 and losses == 0:
+        verdict = (
+            f"The paper-faithful variant wins the paired holdout comparison on "
+            f"{wins} workload(s) and loses none — `stage_exit_conv=True` should "
+            "be the default; update `models/cnn.py`."
+        )
+    elif losses >= 1 and wins == 0:
+        verdict = (
+            f"The bare sum wins: the paper variant's holdout CI is below zero on "
+            f"{losses} workload(s) and above on none.  The default stays "
+            "**False** with the paper variant one knob away."
+        )
+    else:
+        verdict = (
+            "Neither variant separates on the paired holdout comparison "
+            f"(paper wins {wins}, loses {losses}, rest straddle zero): the "
+            "choice does not measurably matter on these workloads.  The "
+            "default stays **False** (one conv fewer per stage = marginally "
+            "cheaper) with the paper variant one knob away."
+        )
+        # Reconcile with the sign tests so the doc can't refute itself: a
+        # nominally-significant sign test with a near-zero effect size is
+        # direction without magnitude — name it rather than hide it.
+        notable = [
+            (name, m, s) for name, cv_s, ho_s in decisions
+            for m, s in (("CV", cv_s), ("holdout", ho_s)) if s["p_sign"] < 0.05
+        ]
+        if notable:
+            details = "; ".join(
+                f"{name} {m}: p={s['p_sign']:.3f}, mean Δ {s['mean']:+.4f}"
+                for name, m, s in notable
+            )
+            # Phrase the direction from the MEASURED signs (ADVICE r4: a
+            # rerun where a significant cell favors the paper variant must
+            # not produce a self-contradicting doc).
+            if all(s["mean"] < 0 for _, _, s in notable):
+                direction = (
+                    "every nominally-significant cell leans against the "
+                    "paper variant, and it argues for the bare-sum default, "
+                    "not against it"
+                )
+            elif all(s["mean"] > 0 for _, _, s in notable):
+                direction = (
+                    "every nominally-significant cell leans toward the "
+                    "paper variant — direction without magnitude; rerun "
+                    "with more genomes/seeds before changing the default"
+                )
+            else:
+                direction = (
+                    "the nominally-significant cells disagree in sign — "
+                    "direction without magnitude either way"
+                )
+            # Magnitude from the data, not a hardcoded claim.
+            max_pp = max(abs(s["mean"]) for _, _, s in notable) * 100.0
+            verdict += (
+                f"  Direction note: the sign test is nominally significant "
+                f"for {details} — a consistent effect of at most "
+                f"{max_pp:.2f}pp; the CI rule, which weights magnitude, "
+                f"reads it as no separation, and {direction}."
+            )
+    lines += [
+        "",
+        "## Decision",
+        "",
+        verdict,
+        "",
+        f"Raw per-genome numbers: `scripts/torch_stage_exit_conv_study.json`.  "
+        f"Total wall {time.time() - t_start:.0f}s.",
+        "",
+    ]
+    with open(out_md, "w") as f:
+        f.write("\n".join(lines))
+    with open(args.json_out or os.path.join(repo, "scripts", "torch_stage_exit_conv_study.json"),
+              "w") as f:
+        json.dump(raw, f, indent=1)
+    print(f"wrote {out_md}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -155,11 +155,15 @@ def test_import_guard_subprocess():
 
 def test_static_import_guard():
     """No file of the port, and not chip_smoke.py, bench_torch.py,
-    torch_entry.py or the port's examples, names jax or the reference."""
+    torch_entry.py, the port's examples or its scripts, names jax or the
+    reference."""
     files = sorted((REPO / "gentun_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "bench_torch.py", REPO / "torch_entry.py",
-        *sorted((REPO / "examples").glob("torch_*.py"))]
+        *sorted((REPO / "examples").glob("torch_*.py")),
+        *sorted((REPO / "scripts").glob("torch_*.py"))]
     assert len(files) > 45 and (REPO / "examples" / "torch_cifar100_deep.py") in files
+    assert REPO / "examples" / "torch_cifar10_genetic_cnn.py" in files
+    assert len(list((REPO / "scripts").glob("torch_*.py"))) == 11
     distributed = {p.name for p in (REPO / "gentun_tpu_torch" / "distributed").glob("*.py")}
     assert distributed == {p.name for p in (REPO / "gentun_tpu" / "distributed").glob("*.py")}
     assert REPO / "gentun_tpu_torch" / "telemetry" / "canary.py" in files
@@ -189,3 +193,59 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                              env=env, cwd=str(cwd), timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+class _IsoModel:
+    """A batched trainer whose fitness reads the raw bits: the ones count
+    plus a small term from the bits' order, so isomorphic genomes (same
+    count) measure differently."""
+
+    trained = 0
+
+    @classmethod
+    def cross_validate_population(cls, x, y, genomes, **params):
+        cls.trained += len(genomes)
+        out = []
+        for g in genomes:
+            bits = [int(b) for k in sorted(g) for b in g[k]]
+            out.append(sum(bits) + sum(b << i for i, b in enumerate(bits)) / 2.0 ** (len(bits) + 1))
+        return np.asarray(out, np.float32)
+
+
+class _Iso(port_ind.Individual):
+    """Cache key: each stage's ones count, collapsing genomes the way a
+    canonical DAG key collapses relabelings; fitness: ``_IsoModel``'s raw
+    number."""
+
+    model_cls = _IsoModel
+
+    def build_spec(self, **p):
+        return port_genes.genetic_cnn_genome((4, 4))
+
+    def cache_key(self):
+        return ("Iso", tuple(sum(int(b) for b in self.genes[k]) for k in sorted(self.genes)))
+
+    def evaluate(self):
+        return float(_IsoModel.cross_validate_population(None, None, [self.genes])[0])
+
+
+@pytest.mark.parametrize("fill", [True, 8])
+def test_speculation_leaves_the_search_unchanged(fill):
+    """Speculative fill trains elite mutants into the cache; an entry it
+    made answers only the raw genome it trained, so a search with it follows
+    the same trajectory as one without (an isomorphic relabeling would get
+    another genome's fitness)."""
+
+    def run(speculative_fill):
+        _IsoModel.trained = 0
+        pop = port_pop.Population(_Iso, x_train=np.zeros(1), y_train=np.zeros(1), size=6, seed=0,
+                                  mutation_rate=0.05, speculative_fill=speculative_fill)
+        ga = port_alg.GeneticAlgorithm(pop, seed=0)
+        ga.run(12)
+        return [(h["generation"], h["best_fitness"], h["best_genes"]) for h in ga.history]
+
+    off = run(False)
+    trained_off = _IsoModel.trained
+    on = run(fill)
+    assert _IsoModel.trained > trained_off  # speculation trained mutants
+    assert on == off
