@@ -102,6 +102,23 @@ W. BASELINE config #4 with the port's worker processes on the card, as
    W1's single-process fitness.  Gates: the probe equals its golden bit
    for bit, both kernels launched, no library convolution.  Every worker
    ends with ``SIGTERM`` (its drain) and must exit 0.
+W4. The steady-state search over a broker (``AsyncEvolution`` picks its
+   distributed evaluator): a master ``DistributedPopulation(GeneticCnnIndividual,
+   size=8, seed=3)`` on config #2's proxy at full width with phase A's ladder
+   (kfold 2, epochs 1 then 2, eta 3) and a ``SurrogateGate``, warm start off,
+   served by one ``python -m gentun_tpu_torch.distributed.worker --species
+   genetic-cnn --dataset cifar10 --n 10000 --capacity 20`` process; the
+   in-flight target left to the fleet (capacity plus prefetch); ``run(24)``.
+   Gates: 24 finite completions; every rung-0 result the worker returned
+   equals, bit for bit, one batched ``cross_validate_population`` call of
+   the same raw genomes in this process; one promotion's rung-1 result
+   equals a replay here; the worker launched both kernels (its exit line);
+   no job outstanding at the broker after the engine's cancellations; the
+   worker exits 0 on ``SIGTERM``; the phase within ``W4_BOUND_S``.  Prints
+   the wall, evaluations per hour against phase A's and phase 3's rates and
+   the prediction, completions per rung, the windows the worker trained
+   (jobs per group: one group a rung config) and the gate's admissions and
+   rejections.
 S. The compute-path studies (``scripts/torch_*.py``) on config #2's proxy
    cell at pop 20, phase 3's data and genomes, after phase W; under
    ``S_BOUND_S`` by its own clock.  S1: ``torch_mfu_study.decompose``, the
@@ -119,8 +136,15 @@ S. The compute-path studies (``scripts/torch_*.py``) on config #2's proxy
    convolution (``conv_counter``).  S4: ``torch_tailgen_study`` at
    ``S_TAILGEN_GENERATIONS`` generations, speculative fill off and 16, each a
    master and a worker process; gate: one GA trajectory and best.  Both
-   kernels must launch in S1-S3 and in S4's workers.  ``python3
-   chip_smoke.py --phase-s`` runs phase S alone.
+   kernels must launch in S1-S3 and in S4's workers.  S5:
+   ``scripts/torch_compile_cache_study.py`` in a process of its own, its
+   temporary directories under ``build/chip_smoke/``: the kernel library's
+   ``nvcc`` build against a fetch from a ``CompileService`` plus its load
+   (act 1, seconds printed), three late joiners that prefetch and load
+   (act 2; gate: no ``nvcc`` among them, host 0's bytes), and the service
+   killed mid-search (act 3; gate: bit-identical to the service-free run,
+   one degraded event).  ``python3 chip_smoke.py --phase-s`` runs phase S
+   alone.
 D. BASELINE config #5 at full width (S=(5,5,5), filters (64,128,256), dense
    512, 100 classes, pop 50, batch 256, bf16, the proxy schedule), as
    ``examples/torch_cifar100_deep.py`` runs it: ``RussianRouletteGA.run(1)``
@@ -183,7 +207,8 @@ Then the card's ``nvidia-smi`` name and power limit, the
 ``{"kernels": [...]}`` line (each kernel's main-path launches, error and
 per-train-step times at config #2, under ``deep`` the same at config #5
 with the launches of phase D's GA, under ``async`` at P=2 with phase A's
-launches, under ``distributed`` phase W's launches, under ``studies``
+launches, under ``distributed`` phase W's launches, under
+``async_distributed`` W4's worker's, under ``studies``
 phase S's, under ``mesh`` and
 ``mesh_big`` each rank's launches in M1 and M2 with phase MK's times) and,
 last, ``{"ok": true, "device": {...}}``.
@@ -1363,6 +1388,110 @@ def phase_workers(torch, workdir: str, single_rate: float):
     return result, w1_launches, w3_launches, local[1]
 
 
+#: Phase W4: the steady-state search over a broker and one worker process:
+#: the completion budget, the phase's bound, and the predicted rate.
+W4_TOTAL, W4_BOUND_S, W4_PREDICTED = 24, 120.0, "3,000-8,000 evaluations/hour"
+#: Phase A's and phase 3's rates (my chip runs, "NVIDIA H100 80GB HBM3, 700.00 W").
+A_RATE, P3_RATE = 1060.5, 16353.0
+
+
+def phase_async_workers(torch, workdir: str):
+    """``AsyncEvolution`` over a ``DistributedPopulation`` and one worker
+    process (see the module docstring, phase W4).  Returns the result and
+    the worker's kernel launches."""
+    from gentun_tpu_torch import AsyncEvolution, FitnessSurrogate, GeneticCnnIndividual
+    from gentun_tpu_torch import SurrogateGate
+    from gentun_tpu_torch.distributed import DistributedPopulation
+    from gentun_tpu_torch.models.cnn import GeneticCnnModel
+    from gentun_tpu_torch.utils.datasets import load_cifar10
+
+    os.makedirs(workdir, exist_ok=True)
+    t_phase = time.monotonic()
+    rung_of = {tuple(r["epochs"]): i for i, r in enumerate(ASYNC_LADDER)}
+    sent, got, procs = {}, {}, []
+    with DistributedPopulation(GeneticCnnIndividual, size=ASYNC_POP, seed=3,
+                               additional_parameters=dict(PROXY), host="127.0.0.1", port=0,
+                               evaluate_retries=3, job_timeout=900.0) as pop:
+        submit, wait = pop.submit_individuals, pop.wait_any_results
+
+        def submit_spy(individuals):
+            ids = submit(individuals)
+            for job, ind in zip(ids, individuals):
+                sent[job] = (ind.get_genes(),
+                             rung_of[tuple(ind.additional_parameters["epochs"])])
+            return ids
+
+        def wait_spy(job_ids, timeout=None):
+            results, failures = wait(job_ids, timeout=timeout)
+            got.update(results)
+            return results, failures
+
+        pop.submit_individuals, pop.wait_any_results = submit_spy, wait_spy
+        procs.append(_worker(workdir, "w4", pop.broker_address[1], POP, None))
+        try:
+            join_s = _await_fleet(pop, procs, 1)
+            gate = SurrogateGate(FitnessSurrogate(min_train=6, refit_every=4), eta=2,
+                                 min_window=4)
+            engine = AsyncEvolution(pop, tournament_size=3, seed=5, eta=3,
+                                    fidelity_ladder=ASYNC_LADDER, surrogate=gate)
+            t0 = time.monotonic()
+            engine.run(max_evaluations=W4_TOTAL)
+            wall = time.monotonic() - t0
+            deadline = time.monotonic() + 60.0
+            while sum(pop.broker.outstanding().values()) and time.monotonic() < deadline:
+                time.sleep(0.1)  # a cancelled job's late result is dropped
+            outstanding = pop.broker.outstanding()
+        finally:
+            _drain(procs)
+    log_text, = _reap(procs)
+    usage = _worker_usage(log_text)
+    launches = usage["kernel_launches"]
+    windows = [json.loads(line.rsplit(" group(s) of ", 1)[1])
+               for line in log_text.splitlines() if " group(s) of " in line]
+    done = [h for h in engine.history if h.get("fitness") is not None]
+    per_rung = [sum(1 for h in done if h["rung"] == r) for r in range(len(ASYNC_LADDER))]
+    rate = len(done) / wall * 3600.0
+    log(f"[W4] AsyncEvolution over a broker and one worker process (--capacity {POP}): ring "
+        f"{ASYNC_POP}, in-flight target {engine._cap} (the fleet's capacity plus prefetch), "
+        f"ladder {ASYNC_LADDER}; worker joined in {join_s:.1f} s; {engine.completed} "
+        f"completions in {wall:.3f} s: {rate:.1f} evaluations/hour (predicted {W4_PREDICTED}; "
+        f"phase A {A_RATE}, phase 3 {P3_RATE} individuals/hour)")
+    log(f"[W4] completions per rung {per_rung}; jobs trained {len(got)} of {len(sent)} "
+        f"submitted; windows the worker trained (jobs per group) {windows}; surrogate "
+        f"admitted {gate.admitted}, rejected {gate.rejected}; broker outstanding {outstanding}")
+    log(f"[W4] the worker's kernel launches {launches}, peak memory allocated "
+        f"{usage.get('peak_memory_allocated', 0) / 2**30:.2f} GiB")
+    check(len(done) == W4_TOTAL and bool(np.isfinite([h["fitness"] for h in done]).all()),
+          f"W4: {W4_TOTAL} finite completions")
+    for k, n in launches.items():
+        check(n > 0, f"{k} launched in W4's worker")
+    check(not any(outstanding.values()), f"W4: no job outstanding at the end ({outstanding})")
+    # Purity through the broker: every rung-0 result is the bits of one
+    # batched call in this process on the worker's data (warm start off).
+    x, y, _ = load_cifar10(n=N_DATA)
+    rung0 = [(sent[j][0], f) for j, f in got.items() if sent[j][1] == 0]
+    rung1 = [(sent[j][0], f) for j, f in got.items() if sent[j][1] == 1]
+    batched = GeneticCnnModel.cross_validate_population(
+        x, y, [g for g, _ in rung0], **dict(PROXY, **ASYNC_LADDER[0]))
+    purity = float(np.abs(batched - np.array([f for _, f in rung0], np.float32)).max())
+    log(f"[W4] purity: {len(rung0)} rung-0 results of the worker vs one batched call here: "
+        f"max|Δfitness| = {purity}")
+    check(purity == 0.0, f"W4: rung-0 results equal the batched call: {purity}")
+    check(bool(rung1), "W4: a genome was promoted to rung 1 and trained")
+    replay = GeneticCnnModel(x, y, rung1[0][0], **dict(PROXY, **ASYNC_LADDER[1])).cross_validate()
+    log(f"[W4] promotion: the worker's rung-1 fitness {rung1[0][1]!r}, a replay here {replay!r}")
+    check(replay == rung1[0][1], "W4: a promotion's rung-1 fitness replays bit for bit")
+    phase_s = time.monotonic() - t_phase
+    log(f"[W4] phase W4 took {phase_s:.1f} s (bound {W4_BOUND_S} s)")
+    check(phase_s < W4_BOUND_S, f"phase W4 within {W4_BOUND_S} s")
+    return {"join_s": join_s, "wall_s": wall, "completions": engine.completed,
+            "evaluations_per_hour": rate, "completions_per_rung": per_rung,
+            "windows": windows, "surrogate_admitted": gate.admitted,
+            "surrogate_rejected": gate.rejected, "trained": len(got), "submitted": len(sent),
+            "purity_max_abs_diff": purity, "launches": launches, "worker": usage,
+            "phase_s": phase_s}, launches
+
+
 #: Phase S: the compute-path studies (``scripts/torch_*.py``) at config #2.
 S_PADS, S_TAILGEN_GENERATIONS, S_BOUND_S = (4, 8), 3, 150.0
 
@@ -1469,6 +1598,48 @@ def phase_studies(torch, main_accs, workdir: str):
     log(f"[S] phase S took {result['phase_s']:.1f} s (bound {S_BOUND_S} s)")
     check(result["phase_s"] < S_BOUND_S, f"phase S within {S_BOUND_S} s")
     return result, launches, worker_launches
+
+
+#: Phase S5: the compile-cache study's three acts, bounded by its own clock.
+S5_BOUND_S = 240.0
+
+
+def phase_compile_cache(workdir: str):
+    """``scripts/torch_compile_cache_study.py`` in a process of its own, its
+    temporary directories under ``workdir`` (see the module docstring,
+    phase S5).  Returns its record."""
+    import shutil
+
+    tmp = os.path.join(workdir, "s5_tmp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    out = os.path.join(workdir, "torch_compile_cache_study.json")
+    if os.path.exists(out):
+        os.remove(out)
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "scripts", "torch_compile_cache_study.py"),
+         "--out", out], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, TMPDIR=tmp),
+        capture_output=True, text=True, timeout=S5_BOUND_S)
+    wall = time.monotonic() - t0
+    check(proc.returncode == 0, f"S5: the compile-cache study exits 0 ({proc.returncode}):\n"
+                                f"{(proc.stdout + proc.stderr)[-3000:]}")
+    with open(out) as fh:
+        rec = json.load(fh)
+    cold, storm, killed = rec["cold_join"], rec["recompile_storm_jax"], rec["service_killed"]
+    log(f"[S5] cold join: nvcc build of the kernel library {cold['compile_s']} s against a "
+        f"fetch {cold['fetch_s']} s + load {cold['cache_load_s']} s ({cold['speedup_x']}x); "
+        f"storm: builds per host {storm['compiles_per_host']}; service killed mid-search: "
+        f"bit-identical {killed['bit_identical_to_service_free_run']}, degraded events "
+        f"{killed['degraded_events']}; {wall:.1f} s")
+    check(storm["late_joiner_true_compiles"] == 0
+          and all(n == 0 for h, n in storm["compiles_per_host"].items() if h != "host0"),
+          "S5: the late joiners ran nvcc zero times")
+    check(killed["bit_identical_to_service_free_run"] and killed["degraded_events"] == 1,
+          "S5: the search with the service killed is bit-identical to the service-free run")
+    shutil.rmtree(tmp, ignore_errors=True)
+    rec["wall_s"] = wall
+    return rec
 
 
 def conv_counter():
@@ -2064,7 +2235,7 @@ def _sub(tot, extra):
 def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
                  async_per_step, async_launches, worker_launches, canary_launches,
                  mesh_launches, big_launches, mesh_per_step, big_per_step, studies_launches,
-                 studies_worker_launches):
+                 studies_worker_launches, async_worker_launches):
     """The ``{"kernels": [...]}`` record: each kernel's launches on the main
     path (phase 3) and, from phase K, its error against the plain version and
     its times summed over the calls of one config #2 train step (bf16); under
@@ -2072,7 +2243,8 @@ def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
     times), under ``async`` for the steady-state search (phase A's launches,
     its P=2 times), under ``distributed`` the launches of phase W: W1's worker
     process over its search, and the in-process client serving W3's canary
-    probe; under ``mesh`` and ``mesh_big`` each rank's launches in phase M
+    probe; under ``async_distributed`` W4's worker process over the
+    steady-state search; under ``mesh`` and ``mesh_big`` each rank's launches in phase M
     (M1's timed call over the ``(2, 1)`` mesh, M2's over the ``(1, 2)``
     mesh) and the kernels' times at one rank's shapes there (phase MK); under
     ``studies`` the launches of phase S: S1-S3 in this process, and S4's
@@ -2109,6 +2281,11 @@ def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
                 "per": f"config #4: {W_GENERATIONS} generations of pop {POP} served by one "
                        f"worker process (capacity {POP}); the canary's one-genome probe",
             },
+            "async_distributed": {
+                "launches": async_worker_launches[name],
+                "per": f"phase W4: AsyncEvolution over a broker, {W4_TOTAL} completions of a "
+                       f"ring of {ASYNC_POP} on config #2's ladder, served by one worker "
+                       f"process (capacity {POP})"},
             "studies": {
                 "launches": studies_launches[name],
                 "worker_launches": studies_worker_launches[name],
@@ -2206,6 +2383,7 @@ def phase_s_main() -> int:
     del x, y
     studies, launches, worker_launches = phase_studies(
         torch, main_accs, os.path.join(REPO, "build", "chip_smoke"))
+    studies["S5"] = phase_compile_cache(os.path.join(REPO, "build", "chip_smoke"))
     log(f"[6] summary: {json.dumps(studies, default=str)}")
     print(smi)
     return 0
@@ -2254,8 +2432,13 @@ def main() -> int:
         torch, os.path.join(REPO, "build", "chip_smoke"), main_result["individuals_per_hour"])
     gc.collect()
     torch.cuda.empty_cache()
+    async_workers, async_worker_launches = phase_async_workers(
+        torch, os.path.join(REPO, "build", "chip_smoke"))
+    gc.collect()
+    torch.cuda.empty_cache()
     studies, studies_launches, studies_worker_launches = phase_studies(
         torch, main_accs, os.path.join(REPO, "build", "chip_smoke"))
+    studies["S5"] = phase_compile_cache(os.path.join(REPO, "build", "chip_smoke"))
     gc.collect()
     torch.cuda.empty_cache()
     deep, deep_launches, deep_slots, (x5, y5, pair, pair_accs) = phase_deep(
@@ -2279,7 +2462,8 @@ def main() -> int:
     summary = {"main_path": main_result, "launches": launches, "purity_max_abs_diff": purity,
                "differing_grad_leaves": leaves, "executors": executors, "deep": deep,
                "deep_launches": deep_launches, "budget": budget, "async": asynchronous,
-               "workers": workers, "studies": studies, "mesh": mesh,
+               "workers": workers, "async_workers": async_workers, "studies": studies,
+               "mesh": mesh,
                "card": smi, "total_s": time.monotonic() - t_start}
     log(f"[6] summary: {json.dumps(summary, default=str)}")
     print(smi)
@@ -2287,7 +2471,7 @@ def main() -> int:
                                   async_per_step, async_launches, worker_launches,
                                   canary_launches, mesh_launches, big_launches,
                                   mesh_per_step, big_per_step, studies_launches,
-                                  studies_worker_launches)))
+                                  studies_worker_launches, async_worker_launches)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -36,6 +36,7 @@ model wastes the MXU on small populations.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import hmac
 import itertools
 import logging
@@ -1260,6 +1261,31 @@ class JobBroker:
         late-joining worker that hasn't delivered yet."""
         with self._cond:
             return max(self._chips_seen, self.fleet_chips())
+
+    @property
+    def epoch(self) -> int:
+        """The dispatch journal's epoch: 0 without a journal, one more at
+        every restart from it."""
+        return self._epoch
+
+    def unknown_jobs(self, job_ids, timeout: float = 10.0) -> Optional[Set[str]]:
+        """The ids among ``job_ids`` this broker holds nothing for: not
+        queued, not in flight, no result or failure waiting; None while it
+        is not serving.  Read on the loop thread, where a result moves from
+        in flight to the results table within one callback, so a job in
+        transit is never reported."""
+        want = set(job_ids)
+        if not self._started.is_set():
+            return None
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+
+        def probe() -> None:
+            with self._cond:
+                done = {j for j in want if j in self._results or j in self._failures}
+            fut.set_result({j for j in want - done if j not in self._payloads})
+
+        self._loop.call_soon_threadsafe(probe)
+        return fut.result(timeout=timeout)
 
     def outstanding(self) -> Dict[str, int]:
         """Sizes of every master-side job-state structure; all zero ⇔ the

@@ -1471,6 +1471,8 @@ class GentunClient:
                 key = ("__unhashable__", id(job))
             groups.setdefault(key, []).append(job)
 
+        logger.info("window of %d job(s) in %d group(s) of %s", len(jobs), len(groups),
+                    [len(g) for g in groups.values()])
         for group in groups.values():
             params = group[0].get("additional_parameters") or {}
             # ONE defensive copy per evaluation group, shared by every

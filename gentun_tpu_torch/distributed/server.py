@@ -20,6 +20,7 @@ TCP listener inside the master process (no external RabbitMQ — SURVEY.md
 from __future__ import annotations
 
 import logging
+import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Type
 
 import numpy as np
@@ -37,6 +38,8 @@ from .sessions import DEFAULT_SESSION
 __all__ = ["DistributedPopulation", "DistributedGridPopulation"]
 
 logger = logging.getLogger("gentun_tpu_torch.distributed")
+#: Seconds between checks for jobs a restarted embedded broker lost.
+_LOST_JOB_POLL_S = 1.0
 
 
 def _params_copier():
@@ -287,6 +290,9 @@ class DistributedPopulation(Population):
         # for the implicit default so submits stay untagged (and the
         # default session is only lazily created broker-side).
         self._session_arg = str(session) if session else None
+        # Steady-state submits not yet terminal: job id -> (payload, the
+        # broker's journal epoch when last known held).
+        self._open_async: Dict[str, tuple] = {}
         self.session = self._session_arg or DEFAULT_SESSION
         self.session_weight = float(session_weight)
         self.session_quota = session_quota
@@ -439,14 +445,51 @@ class DistributedPopulation(Population):
             ids.append(job_id)
         if payloads:
             self.broker.submit(payloads, session=self._session_arg)
+            epoch = getattr(self.broker, "epoch", None)
+            if epoch is not None:
+                for job_id, payload in payloads.items():
+                    self._open_async[job_id] = (payload, epoch)
         return ids
 
     def wait_any_results(self, job_ids: Sequence[str], timeout: Optional[float] = None):
-        """Block until ≥1 of ``job_ids`` is terminal; ``(results, failures)``."""
-        return self.broker.wait_any(list(job_ids), timeout=timeout)
+        """Block until ≥1 of ``job_ids`` is terminal; ``(results, failures)``.
+
+        An embedded broker that restarted from its journal holds nothing
+        for a job whose submit record died in the abandoned buffer; while
+        waiting, each epoch change submits such jobs again under their ids
+        (the master's half of at-least-once delivery).
+        """
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            self._resubmit_lost()
+            step = _LOST_JOB_POLL_S if deadline is None else max(
+                0.0, min(_LOST_JOB_POLL_S, deadline - time.monotonic()))
+            results, failures = self.broker.wait_any(list(job_ids), timeout=step)
+            if results or failures or (deadline is not None and time.monotonic() >= deadline):
+                for job_id in (*results, *failures):
+                    self._open_async.pop(job_id, None)
+                return results, failures
+
+    def _resubmit_lost(self) -> None:
+        epoch = getattr(self.broker, "epoch", None)
+        stale = {j: p for j, (p, e) in self._open_async.items() if e != epoch}
+        if not stale:
+            return
+        lost = self.broker.unknown_jobs(stale)
+        if lost is None:  # restarting: ask again once it serves
+            return
+        for job_id, payload in stale.items():
+            self._open_async[job_id] = (payload, epoch)
+        if lost:
+            logger.warning("broker epoch %d holds nothing for %d open job(s) (their submit "
+                           "died with the previous epoch); submitting them again",
+                           epoch, len(lost))
+            self.broker.submit({j: stale[j] for j in lost}, session=self._session_arg)
 
     def cancel_jobs(self, job_ids: Sequence[str]) -> None:
         """Withdraw still-open jobs whose results are no longer wanted."""
+        for job_id in job_ids:
+            self._open_async.pop(job_id, None)
         self.broker.cancel(job_ids)
 
     # -- the distributed fitness sweep ------------------------------------

@@ -149,12 +149,27 @@ def stop_workers(procs) -> None:
             p.wait(timeout=10.0)
 
 
+def ran_mesh(broker, ranks_per_worker: int, mesh=None):
+    """``(capacity, pop, data)`` of the fleet that runs the phase: what its
+    first worker advertised in its hello (the mesh it built, ``--mesh``
+    included), else the ``--mesh`` override passed to it (or the default
+    factoring) with the capacity derived from that."""
+    from gentun_tpu_torch.parallel.mesh import host_worker_capacity, parse_mesh_spec
+
+    for w in broker._ops_status()["workers"]:
+        if w.get("mesh"):
+            return w["capacity"], w["mesh"]["pop"], w["mesh"]["data"]
+    if mesh is None:
+        return host_worker_capacity(ranks_per_worker)
+    pop_axis, data_axis = parse_mesh_spec(mesh)
+    return host_worker_capacity(ranks_per_worker, pop_axis=pop_axis, data_axis=data_axis)
+
+
 def run_phase(args, n_workers: int, ranks_per_worker: int, label: str, pop_size=None,
               mesh=None, params=None) -> dict:
     """One fitness sweep of a fresh population against a freshly started fleet."""
     from gentun_tpu_torch.distributed import DistributedPopulation
     from gentun_tpu_torch.individuals import GeneticCnnIndividual
-    from gentun_tpu_torch.parallel.mesh import host_worker_capacity
 
     base, pop_n, _, _ = workload(args)
     pop = DistributedPopulation(
@@ -175,6 +190,7 @@ def run_phase(args, n_workers: int, ranks_per_worker: int, label: str, pop_size=
                                    f"logs in {args.workdir})")
             time.sleep(0.1)
         join_s = time.monotonic() - t0
+        advertised = ran_mesh(pop.broker, ranks_per_worker, mesh)
         if args.warmup:
             # A population of other genomes first: the workers' first call
             # uploads the dataset and warms the allocator.
@@ -188,7 +204,7 @@ def run_phase(args, n_workers: int, ranks_per_worker: int, label: str, pop_size=
         wall = time.monotonic() - t0
         by_genome = {repr(ind.cache_key()[1]): ind.get_fitness() for ind in pop}
         outstanding = pop.broker.outstanding()
-        cap, pop_ax, data_ax = host_worker_capacity(ranks_per_worker)
+        cap, pop_ax, data_ax = advertised
         if args.capacity != "auto":
             cap = int(args.capacity)
         return {

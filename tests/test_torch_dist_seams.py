@@ -13,6 +13,7 @@ import shutil
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -319,3 +320,48 @@ def test_example_demo_runs_tiny_on_the_cpu(capsys):
     example.main(["demo", "--device", "cpu", "--generations", "2", "--population", "4",
                   "--n-images", "64", "--nodes", "2", "--kernels", "2", "--batch-size", "16"])
     assert "demo best fitness:" in capsys.readouterr().out
+
+
+def test_submits_a_restarted_broker_lost_are_submitted_again(tmp_path):
+    """A steady-state master on an embedded journaled broker: submits whose
+    journal records die in the abandoned buffer of a kill are unknown to the
+    restarted broker, and waiting on them submits them again under their ids
+    (without that, the wait never ends)."""
+    import socket
+
+    from gentun_tpu_torch import Population
+    from gentun_tpu_torch.distributed import JobBroker
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    broker = JobBroker(port=port, journal_path=str(tmp_path / "broker.journal"),
+                       journal_fsync_interval=3600.0).start()
+    stop = threading.Event()
+    try:
+        pop = DistributedPopulation(OneMax, size=3, seed=0, host="127.0.0.1", port=port,
+                                    broker=broker, job_timeout=60)
+        individuals = list(Population(OneMax, *DATA, size=3, seed=1))
+        ids = pop.submit_individuals(individuals)
+        deadline = time.monotonic() + 10.0
+        while broker.unknown_jobs(ids) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert broker.unknown_jobs(ids) == set()
+        broker.kill()  # nothing was flushed: every submit dies with the epoch
+        broker.start()
+        assert broker.epoch == 2 and broker.unknown_jobs(ids) == set(ids)
+        client = GentunClient(OneMax, *DATA, host="127.0.0.1", port=port,
+                              heartbeat_interval=0.2, reconnect_delay=0.05)
+        threading.Thread(target=client.work, kwargs={"stop_event": stop}, daemon=True).start()
+        got = {}
+        deadline = time.monotonic() + 30.0
+        while len(got) < len(ids) and time.monotonic() < deadline:
+            results, failures = pop.wait_any_results([j for j in ids if j not in got],
+                                                     timeout=5.0)
+            assert not failures
+            got.update(results)
+        assert got == {j: ind.evaluate() for j, ind in zip(ids, individuals)}
+        pop.close()
+    finally:
+        stop.set()
+        broker.stop()

@@ -163,7 +163,7 @@ def test_static_import_guard():
         *sorted((REPO / "scripts").glob("torch_*.py"))]
     assert len(files) > 45 and (REPO / "examples" / "torch_cifar100_deep.py") in files
     assert REPO / "examples" / "torch_cifar10_genetic_cnn.py" in files
-    assert len(list((REPO / "scripts").glob("torch_*.py"))) == 11
+    assert len(list((REPO / "scripts").glob("torch_*.py"))) == 31
     distributed = {p.name for p in (REPO / "gentun_tpu_torch" / "distributed").glob("*.py")}
     assert distributed == {p.name for p in (REPO / "gentun_tpu" / "distributed").glob("*.py")}
     assert REPO / "gentun_tpu_torch" / "telemetry" / "canary.py" in files

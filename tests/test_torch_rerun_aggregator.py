@@ -1,0 +1,5 @@
+"""The JAX package's ``tests/test_aggregator.py``, run against the port's copies."""
+
+from _torch_rerun import load
+
+load(globals(), "test_aggregator.py")

@@ -1,0 +1,5 @@
+"""The JAX package's ``tests/test_surrogate.py``, run against the port's copies."""
+
+from _torch_rerun import load
+
+load(globals(), "test_surrogate.py")

@@ -2,6 +2,7 @@
 CPU ranks (real ``torch.distributed`` groups of worker processes): two ranks
 give one process's bits, and the over-budget classes route over them."""
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -14,6 +15,13 @@ REPO = Path(__file__).resolve().parents[1]
 SCRIPTS = REPO / "scripts"
 #: Seconds a study may take here (each rank imports torch and the port).
 DEADLINE_S = 240.0
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(f"study_{name}", SCRIPTS / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _env():
@@ -67,3 +75,18 @@ def test_bigmodel_over_budget_routes_over_two_ranks(rank_studies):
         assert record[name]["all_evaluated"] and record[name]["quiescent"], name
     assert record["big"]["max_abs_delta_vs_small_path"] <= record["big"]["delta_bound"]
     assert record["classifier"]["per_call_us"] > 0
+
+
+def test_meshscale_records_the_mesh_the_worker_ran(tmp_path, monkeypatch):
+    """A two-rank worker given ``--mesh 1x2`` records ``(1, 2)`` and that
+    mesh's capacity, not the default factoring's ``(2, 1)``."""
+    from gentun_tpu_torch.parallel.mesh import host_worker_capacity
+
+    for key, value in _env().items():
+        monkeypatch.setenv(key, value)
+    ms = _load("torch_meshscale_study")
+    args = ms.parse(["--tiny", "--workdir", str(tmp_path)])
+    phase = ms.run_phase(args, 1, 2, "mesh_1x2", mesh="1x2")
+    assert phase["mesh"] == {"pop": 1, "data": 2}
+    assert phase["derived_capacity"] == host_worker_capacity(2, pop_axis=1, data_axis=2)[0]
+    assert phase["evaluated"] > 0 and phase["outstanding_total"] == 0

@@ -11,6 +11,7 @@ metric names stay within the reference's documented catalog, and its
 import importlib.util
 import json
 import math
+import time
 from dataclasses import asdict
 from pathlib import Path
 
@@ -270,3 +271,62 @@ def test_ga_run_flushes_active_pushers(monkeypatch):
     port.AsyncEvolution(pop, max_in_flight=1, seed=0).run(max_evaluations=6)
     assert calls == [1, 1]
     assert math.isfinite(pop.get_fittest().get_fitness())
+
+
+def _connected_gauge(join_first: bool, tmp_path):
+    """``broker_workers_connected`` in a run's summary, with two worker
+    threads joining before ``RunTelemetry`` is entered or after it."""
+    import threading
+
+    from gentun_tpu_torch import GeneticAlgorithm, Individual, genetic_cnn_genome
+    from gentun_tpu_torch.distributed import DistributedPopulation, GentunClient
+    from gentun_tpu_torch.telemetry import RunTelemetry
+
+    class OneMax(Individual):
+        def build_spec(self, **params):
+            return genetic_cnn_genome((4, 4))
+
+        def evaluate(self):
+            return float(sum(sum(g) for g in self.genes.values()))
+
+    data = (np.zeros(1, np.float32), np.zeros(1, np.float32))
+    stops = []
+    with DistributedPopulation(OneMax, size=4, seed=6, port=0) as pop:
+        def start_workers():
+            for i in range(2):
+                stop = threading.Event()
+                client = GentunClient(OneMax, *data, host="127.0.0.1",
+                                      port=pop.broker_address[1], heartbeat_interval=0.2,
+                                      reconnect_delay=0.1, worker_id=f"w{i}")
+                threading.Thread(target=client.work, kwargs={"stop_event": stop},
+                                 daemon=True).start()
+                stops.append(stop)
+
+        try:
+            if join_first:
+                start_workers()
+                deadline = time.monotonic() + 10.0
+                while pop.broker.fleet_members() < 2 and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                assert pop.broker.fleet_members() == 2
+            with RunTelemetry(str(tmp_path / f"join_first_{join_first}.jsonl")) as run:
+                if not join_first:
+                    start_workers()
+                GeneticAlgorithm(pop, seed=6).run(1)
+            gauges = {g["name"]: g["value"] for g in run.summary()["gauges"]}
+        finally:
+            for stop in stops:
+                stop.set()
+    return gauges.get("broker_workers_connected")
+
+
+def test_connected_gauge_is_set_by_joins_under_telemetry(monkeypatch, tmp_path):
+    """The race in the reference's end-to-end telemetry case: workers that
+    joined before the run installed its sink leave ``broker_workers_connected``
+    unset for the run; workers that join under telemetry set it."""
+    from gentun_tpu_torch.telemetry import registry as registry_mod
+
+    monkeypatch.setattr(registry_mod, "_REGISTRY", registry_mod.MetricsRegistry())
+    assert _connected_gauge(True, tmp_path) is None
+    monkeypatch.setattr(registry_mod, "_REGISTRY", registry_mod.MetricsRegistry())
+    assert _connected_gauge(False, tmp_path) == 2
