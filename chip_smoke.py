@@ -11,7 +11,7 @@ result:
 
 1. Device: the card's name, ``nvidia-smi``'s name and power limit, the torch
    and CUDA versions.  No CUDA device: exit 2.
-K. Kernels: both kernels (``pop_conv3x3_fwd``, also run as the input
+K. Kernels: both conv kernels (``pop_conv3x3_fwd``, also run as the input
    gradient, and ``pop_conv3x3_wgrad``) at every conv shape of config #2's
    train step (pop 20, batch 256) and eval forward (batch 1,024), in bf16
    and float32, at config #1's shapes, in float64 and at 600 slots of batch
@@ -26,7 +26,22 @@ K. Kernels: both kernels (``pop_conv3x3_fwd``, also run as the input
    Then the kernels' purity witness, a gate: at each config #2 conv, as
    forward, input gradient and weight gradient, bf16 and float32, slots 0
    and 7 of an S=20 call give the same bits alone (S=1) and as slot 1 of an
-   S=3 call.
+   S=3 call.  Then the three stage-DAG kernels (``csrc/pop_dag.cu``:
+   ``pop_dag_node_input``, ``pop_dag_stage_out`` with the 2×2 pool, and
+   ``pop_dag_node_grad``) at every call of each stage of the same train step
+   and eval forward, on random raw conv outputs with the masks of phase 3's
+   genomes, bf16 and float32, each call bit for bit against its plain
+   version (the eager chain's ops; at eval in slices of 256 images against
+   the kernel's one call at 1,024), timed in bf16 beside its bound, the
+   eager chain's time for each stage's same work (``chain_dag_ms``: ReLU
+   and the selections once a node, as the model ran them before) and, for
+   the pool, ``F.max_pool2d``; the edge cases (``phase_dag_edges``: a stage
+   with has_active 0, isolated nodes, odd 7×9 images with inf and NaN, the
+   exit conv's sum and pool-only forms, float64 once); the pool's window
+   rule against ``F.max_pool2d`` (all-zero, tied and NaN windows: values,
+   argmax and the routed gradient); and the whole stage function, a gate:
+   the bits of autograd of the eager chain (output and every gradient), and
+   slot 7 of S=20 alone.
 L. Step 0's leaf check: one genome's grad leaves after one train step's
    backward in slot 0 of a P=2 and of the P=20 model, bf16 and float32,
    must be the same bits; the differing leaves are printed.
@@ -42,8 +57,9 @@ L. Step 0's leaf check: one genome's grad leaves after one train step's
    256, bf16) on synthetic CIFAR-shaped data (10,000 images, 10 classes)
    under the proxy schedule (kfold=2, epochs=(1,)): one warm-up call, one
    timed call, one call with telemetry spans on for the train/eval split.
-   The mean proxy accuracy must be at least 0.5.  The kernels' launch
-   counts are set to 0 before these calls and read after; each must be > 0.
+   The mean proxy accuracy must be at least 0.5.  The launch counts of all
+   five kernels (the two convs' and the three DAG kernels') are set to 0
+   before these calls and read after; each must be > 0.
 4. Purity on the card, a gate: in bf16 and float32 the pop-20 batch against
    the same call again, against the same batch in reversed slot order,
    against three of its genomes trained alone (pop bucket 2, slot 0) and
@@ -163,11 +179,14 @@ D. BASELINE config #5 at full width (S=(5,5,5), filters (64,128,256), dense
    ``_chunked_by_cap`` learned a cap (a CUDA OOM) and which, the timed
    call's wall, its train step and eval batch times (and the GA's), and
    the cost-calibration gauges.
-K5. Both kernels at every conv shape of config #5's train step (bf16, batch
-   256) and eval forward (batch 1,024), at the slot count phase D's
+K5. Both conv kernels at every conv shape of config #5's train step (bf16,
+   batch 256) and eval forward (batch 1,024), at the slot count phase D's
    programs ran (its learned cap, else 50), each held against the plain
    version under ``TOLERANCE``, with kernel, plain, cuDNN grouped and bound
-   times and the calls per step.
+   times and the calls per step; and the DAG kernels at every call of each
+   stage there, bit for bit: the eval rows run the kernel at the full
+   batch of 1,024 and the plain version in slices of 256 images, each held
+   against the same rows.
 B. Config #5 under a ``device_budget`` that classifies it ``micro`` with
    factor 2 (``param_bytes + act_bytes_per_example·128``): two of phase D's
    genomes route one per call, unpadded, microbatch 2, with finite
@@ -203,9 +222,13 @@ M. The ``(pop, data)`` mesh over ranks and the multi-host worker, after the
    #2, P=10, batch 256) and M2 (config #5, P=1, batch 128), as phase K.
 6. A summary line of the run as JSON.
 
-Then the card's ``nvidia-smi`` name and power limit, the
-``{"kernels": [...]}`` line (each kernel's main-path launches, error and
-per-train-step times at config #2, under ``deep`` the same at config #5
+Wherever a phase gates on launches, every kernel of the library counts
+(``pop_conv.LAUNCHES``, the one table ``pop_dag.LAUNCHES`` shares).  Then
+the card's ``nvidia-smi`` name and power limit, the
+``{"kernels": [...]}`` line (each of the five kernels' main-path launches,
+error and per-train-step times at config #2 (the DAG kernels'
+``library_ms`` null: no one library call computes them; the stage output's
+``max_pool2d_ms`` beside it), under ``deep`` the same at config #5
 with the launches of phase D's GA, under ``async`` at P=2 with phase A's
 launches, under ``distributed`` phase W's launches, under
 ``async_distributed`` W4's worker's, under ``studies``
@@ -500,6 +523,441 @@ def kernel_purity(torch):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The stage-DAG kernels (csrc/pop_dag.cu): each call held bit for bit against
+# its plain version (the eager chain's ops) on the same inputs.
+# ---------------------------------------------------------------------------
+
+DAG_SOURCE = "gentun_tpu_torch/csrc/pop_dag.cu"
+DAG_KERNELS = ("pop_dag_node_input", "pop_dag_stage_out", "pop_dag_node_grad")
+KERNELS = ("pop_conv3x3_fwd", "pop_conv3x3_wgrad", *DAG_KERNELS)
+#: The DAG kernels do their arithmetic in float32 (float64 for float64) on
+#: the CUDA cores: 67 TFLOP/s (NVIDIA H100 SXM data sheet, 700 W).
+DAG_PEAK_FLOPS = 67e12
+
+
+def new_per_step():
+    """Per-step totals for every kernel of the library."""
+    return {name: {} for name in KERNELS}
+
+
+def same_bits(torch, a, b) -> bool:
+    """The same values, NaN where the other has NaN (+0 and -0 alike)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    an, bn = a.isnan(), b.isnan()
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    return torch.equal(an, bn) and torch.equal(torch.where(an, zero, a), torch.where(bn, zero, b))
+
+
+def stage_masks_of(torch, genomes, nodes, s):
+    """Stage s's masks of the genomes as the stage function takes them, on the card."""
+    from gentun_tpu_torch.ops.dag import stack_genome_masks
+    from gentun_tpu_torch.ops.pop_dag import stage_masks
+
+    return stage_masks(stack_genome_masks(genomes, nodes)[s], torch.device("cuda"))
+
+
+def dag_stage_rows(torch, dtype, masks, b, f, h, w, exit_conv=False, timed=False,
+                   forward_only=False, nonfinite=False, seed=0, plain_rows=None):
+    """Every DAG kernel call of one stage (S = the masks' slots, k their
+    nodes, F channels, h×w images, batch b) on random raw conv outputs:
+    forward (node inputs, the stage output with the pool, or with
+    ``exit_conv`` the sum and the pool-only form) and, unless
+    ``forward_only``, backward (each node's and the entry's gradient from the
+    pooled gradient and the successors' input gradients, or the full-size
+    one after the exit conv).  Each call against its plain version, bit for
+    bit: the phase fails otherwise.  With ``plain_rows``, the kernel runs
+    once at the full batch and the plain version on slices of that many
+    images, each slice held against the same rows of the kernel's output
+    (every image is independent in each DAG function): the kernel keeps the
+    main path's shape while the plain version's temporaries stay small.
+    ``nonfinite`` puts inf and NaN among
+    the inputs.  With ``timed``, the kernel's and the plain version's times
+    (the plain version's over all slices),
+    the bound (bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s), and
+    for a pooling call ``F.max_pool2d``'s time on the stage's full-size
+    output.  Returns one row a call."""
+    import torch.nn.functional as F
+    from gentun_tpu_torch.ops import pop_dag as pd
+
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    k, slots = masks.k, masks.slots
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev,
+                                     dtype=torch.float32).to(dt)
+    full = (b, slots * f, h, w)
+    y_entry, ys = rnd(*full), [rnd(*full) for _ in range(k)]
+    if nonfinite:
+        y_entry.view(-1)[::997] = float("inf")
+        for i, y in enumerate(ys):
+            y.view(-1)[i::991] = float("nan") if i % 2 else float("inf")
+    n, es = y_entry.numel(), y_entry.element_size()
+    npool = b * slots * f * (h // 2) * (w // 2)
+    slices = [slice(a, a + (plain_rows or b)) for a in range(0, b, plain_rows or b)]
+    cut = lambda ts, sl: [t[sl] for t in ts]
+    # (kernel, label, kernel fn, plain fn of a batch slice, bytes, flops,
+    # pooled input of a batch slice)
+    calls = []
+
+    def add(kernel, label, fn, plain, nbytes, flops, pooled=None):
+        calls.append((kernel, label, fn, plain, nbytes, flops, pooled))
+
+    for j in range(k):
+        add("pop_dag_node_input", f"node_input j={j}",
+            lambda j=j: pd.pop_dag_node_input(y_entry, ys, j, masks),
+            lambda sl, j=j: pd.pop_dag_node_input_reference(y_entry[sl], cut(ys, sl), j, masks),
+            (j + 2) * n * es, (2 + 4 * j) * n)
+    y_exit = rnd(*full) if exit_conv else None
+    if exit_conv:
+        add("pop_dag_stage_out", "stage_out sum",
+            lambda: pd.pop_dag_stage_out(y_entry, ys, masks, False),
+            lambda sl: pd.pop_dag_stage_out_reference(y_entry[sl], cut(ys, sl), masks, False),
+            (k + 2) * n * es, (4 * k + 4) * n)
+        add("pop_dag_stage_out", "stage_out pool-only",
+            lambda: pd.pop_dag_stage_out(y_exit, [], masks, True),
+            lambda sl: pd.pop_dag_stage_out_reference(y_exit[sl], [], masks, True),
+            n * es + npool * (es + 1), 2 * n, pooled=lambda sl: torch.relu(y_exit[sl]))
+        gidx = pd.pop_dag_stage_out(y_exit, [], masks, True)[1]
+    else:
+        add("pop_dag_stage_out", "stage_out pool",
+            lambda: pd.pop_dag_stage_out(y_entry, ys, masks, True),
+            lambda sl: pd.pop_dag_stage_out_reference(y_entry[sl], cut(ys, sl), masks, True),
+            (k + 1) * n * es + npool * (es + 1), (4 * k + 6) * n,
+            pooled=lambda sl: pd.pop_dag_stage_out_reference(y_entry[sl], cut(ys, sl), masks,
+                                                             False))
+        gidx = pd.pop_dag_stage_out(y_entry, ys, masks, True)[1]
+    if not forward_only:
+        gz = rnd(*gidx.shape)
+        d = [rnd(*full) for _ in range(k)]
+        g_in = npool * (es + 1)
+        if exit_conv:
+            add("pop_dag_node_grad", "node_grad exit (plain, pooled g)",
+                lambda: pd.pop_dag_node_grad(y_exit, gz, gidx, "plain", -1, d, masks),
+                lambda sl: pd.pop_dag_node_grad_reference(y_exit[sl], gz[sl], gidx[sl], "plain", -1,
+                                                          cut(d, sl), masks),
+                2 * n * es + g_in, 4 * n)
+            g, gi, g_in = rnd(*full), None, n * es
+        else:
+            g, gi = gz, gidx
+        for i in range(k - 1, -1, -1):
+            add("pop_dag_node_grad", f"node_grad node {i}",
+                lambda i=i: pd.pop_dag_node_grad(ys[i], g, gi, "node", i, d, masks),
+                lambda sl, i=i: pd.pop_dag_node_grad_reference(
+                    ys[i][sl], g[sl], None if gi is None else gi[sl], "node", i, cut(d, sl), masks),
+                (2 + k - 1 - i) * n * es + g_in, (5 + 3 * (k - 1 - i)) * n)
+        mode = "entry" if k else "plain"
+        add("pop_dag_node_grad", f"node_grad entry ({mode})",
+            lambda: pd.pop_dag_node_grad(y_entry, g, gi, mode, -1, d, masks),
+            lambda sl: pd.pop_dag_node_grad_reference(
+                y_entry[sl], g[sl], None if gi is None else gi[sl], mode, -1, cut(d, sl), masks),
+            (2 + k) * n * es + g_in, (3 + 3 * k) * n)
+    rows = []
+    tup = lambda out: out if isinstance(out, tuple) else (out,)
+    for kernel, label, fn, plain, nbytes, flops, pooled in calls:
+        got, same, err = tup(fn()), True, 0.0
+        for sl in slices:
+            for a, r in zip(got, tup(plain(sl))):
+                if not same_bits(torch, a[sl], r):
+                    same = False
+                    err = max(err, err_and_scale(a[sl].float(), r.float())[0])
+        del got
+        row = {"kernel": kernel, "label": label, "dtype": dtype,
+               "shape": [slots, k, f, b, h, w], "same_bits": same, "max_abs_err": err,
+               "plain_rows": plain_rows or b}
+        check(same, f"{kernel} ({label}) vs its plain version, {dtype}, S={slots} k={k} "
+                    f"F={f} B={b} {h}x{w}: not the same bits (max abs err {err})")
+        if timed:
+            row["ms"] = cuda_ms(torch, fn)
+            row["plain_ms"] = cuda_ms(torch, lambda: [plain(sl) for sl in slices])
+            row["library_ms"] = None
+            row["bound_bytes_ms"] = nbytes / PEAK_BYTES * 1e3
+            row["bound_ops_ms"] = flops / DAG_PEAK_FLOPS * 1e3
+            row["bound_ms"] = max(row["bound_bytes_ms"], row["bound_ops_ms"])
+            if pooled is not None:
+                xin = y_entry.new_empty(full)
+                for sl in slices:
+                    xin[sl] = pooled(sl)
+                row["max_pool2d_ms"] = cuda_ms(torch, lambda: F.max_pool2d(xin, 2))
+                del xin
+        rows.append(row)
+    return rows
+
+
+def add_dag_per_step(tot, r):
+    """Add one DAG row (one call a train step) to its kernel's totals."""
+    for key in ("ms", "plain_ms", "bound_ms", "bound_ops_ms", "bound_bytes_ms"):
+        tot[key] = tot.get(key, 0.0) + r[key]
+    if "max_pool2d_ms" in r:
+        tot["max_pool2d_ms"] = tot.get("max_pool2d_ms", 0.0) + r["max_pool2d_ms"]
+    tot["bound_bytes_calls_ms"] = tot.get("bound_bytes_calls_ms", 0.0) + r["bound_ms"]
+    tot["library_ms"] = None
+    tot["max_abs_err"] = max(tot.get("max_abs_err", 0.0), r["max_abs_err"])
+    tot["calls"] = tot.get("calls", 0) + 1
+
+
+def step_dag(torch, tag, nodes, filters, slots, dtype, per_step=None, batch=256):
+    """Every DAG kernel call of one train step (and in bf16 of one eval
+    batch of 1,024, the plain version in slices of ``batch`` images) at each
+    stage of the supergraph on 32×32 images, with the masks of
+    ``random_population(nodes, slots, seed=2)`` (phase 3's genomes at
+    config #2), held against the plain version; timed, summed per kernel
+    into ``per_step`` and beside it the eager chain's time for the same
+    work (:func:`chain_dag_ms`), when ``per_step`` is given."""
+    genomes = random_population(nodes, slots, seed=2)
+    rows, h = [], 32
+    for s, (k, f) in enumerate(zip(nodes, filters)):
+        masks = stage_masks_of(torch, genomes, nodes, s)
+        stage = dag_stage_rows(torch, dtype, masks, batch, f, h, h, timed=per_step is not None,
+                               seed=s)
+        evals = []
+        if dtype == "bfloat16":
+            evals = dag_stage_rows(torch, dtype, masks, 1024, f, h, h, timed=True,
+                                   forward_only=True, seed=10 + s, plain_rows=batch)
+        for r, when in [(r, f"train B={batch}") for r in stage] + [(r, "eval B=1024") for r in evals]:
+            r["stage"], r["per_step"] = s, 1 if when.startswith("train") else 0
+            sliced = (f" (in slices of {r['plain_rows']})"
+                      if r["plain_rows"] < r["shape"][3] else "")
+            times = (f"; kernel {r['ms']:.3f} ms, plain{sliced} {r['plain_ms']:.3f}, bound "
+                     f"{r['bound_ms']:.3f}" + (f", F.max_pool2d {r['max_pool2d_ms']:.3f}"
+                                               if "max_pool2d_ms" in r else "")
+                     if "ms" in r else "")
+            log(f"[{tag}] dag {dtype:8s} stage{s} {r['label']:28s} S={slots} k={k} F={f} "
+                f"{h}x{h} {when}: same bits{times}")
+            if per_step is not None and r["per_step"]:
+                add_dag_per_step(per_step[r["kernel"]], r)
+        if per_step is not None:
+            chain = chain_dag_ms(torch, dtype, masks, batch, f, h, h, seed=20 + s)
+            log(f"[{tag}] dag {dtype:8s} stage{s} eager chain (train B={batch}): node inputs "
+                f"{chain['pop_dag_node_input']:.3f} ms, stage output and F.max_pool2d "
+                f"{chain['pop_dag_stage_out']:.3f} ms, autograd backward "
+                f"{chain['pop_dag_node_grad']:.3f} ms")
+            for kname, ms in chain.items():
+                per_step[kname]["chain_ms"] = per_step[kname].get("chain_ms", 0.0) + ms
+        rows += stage + evals
+        h //= 2
+    return rows
+
+
+def chain_inputs(torch, y_entry, ys, masks):
+    """The eager chain's node inputs from a stage's raw conv outputs, as the
+    model ran them before the stage function (ReLU and the ``active``
+    selection once a node, shared by every consumer): ``(a0, outs, inps)``,
+    each ``(B, S, F, H, W)``."""
+    import torch.nn.functional as F
+
+    dt, k, pop = y_entry.dtype, masks.k, masks.slots
+    b, _, hh, ww = y_entry.shape
+    adj, entry, active = (m.to(dt) for m in masks[:3])
+    sc = lambda v, t: v.view(1, -1, 1, 1, 1) * t
+    a0 = F.relu(y_entry).reshape(b, pop, -1, hh, ww)
+    outs, inps = [], []
+    for j in range(k):
+        inp = sc(entry[:, j], a0)
+        for i in range(j):
+            inp = inp + sc(adj[:, i, j], outs[i])
+        inps.append(inp)
+        outs.append(sc(active[:, j], F.relu(ys[j]).reshape(b, pop, -1, hh, ww)))
+    return a0, outs, inps
+
+
+def chain_merge(torch, a0, outs, masks):
+    """The eager chain's stage output ``(B, S·F, H, W)`` from ``a0`` and the
+    nodes' selected outputs, before the pool (and the exit conv)."""
+    dt = a0.dtype
+    exit_, has = masks.exit.to(dt), masks.has_active.to(dt)
+    sc = lambda v, t: v.view(1, -1, 1, 1, 1) * t
+    if outs:
+        out = sc(exit_[:, 0], outs[0])
+        for i in range(1, len(outs)):
+            out = out + sc(exit_[:, i], outs[i])
+        xs = sc(has, out) + sc(1.0 - has, a0)
+    else:
+        xs = a0
+    b, _, _, hh, ww = a0.shape
+    return xs.reshape(b, -1, hh, ww)
+
+
+def chain_dag_ms(torch, dtype, masks, b, f, h, w, seed=0):
+    """Device ms of the eager chain's ops that the DAG kernels replace, for
+    one stage (S = the masks' slots, k their nodes, F channels, h×w images,
+    batch b) on random raw conv outputs: ``{kernel: ms}``, the node inputs
+    (:func:`chain_inputs`) for ``pop_dag_node_input``, the stage output and
+    ``F.max_pool2d`` for ``pop_dag_stage_out``, and autograd's backward of
+    both, from a pooled gradient and each node input's gradient, for
+    ``pop_dag_node_grad``."""
+    import torch.nn.functional as F
+
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev,
+                                     dtype=torch.float32).to(dt)
+    full = (b, masks.slots * f, h, w)
+    leaves = [rnd(*full).requires_grad_() for _ in range(masks.k + 1)]
+    out = {}
+    with torch.no_grad():
+        out["pop_dag_node_input"] = cuda_ms(
+            torch, lambda: chain_inputs(torch, leaves[0], leaves[1:], masks))
+        a0, outs, _ = chain_inputs(torch, leaves[0], leaves[1:], masks)
+        out["pop_dag_stage_out"] = cuda_ms(
+            torch, lambda: F.max_pool2d(chain_merge(torch, a0, outs, masks), 2))
+        del a0, outs
+    a0, outs, inps = chain_inputs(torch, leaves[0], leaves[1:], masks)
+    z = F.max_pool2d(chain_merge(torch, a0, outs, masks), 2)
+    del a0, outs
+    roots, grads = [z], [rnd(*z.shape)]
+    for inp in inps:
+        roots.append(inp)
+        grads.append(rnd(*inp.shape))
+    out["pop_dag_node_grad"] = cuda_ms(
+        torch, lambda: torch.autograd.grad(roots, leaves, grads, retain_graph=True))
+    return out
+
+
+def chain_stage(torch, x, masks, params, shared, exit_conv):
+    """One stage as the model ran it before the stage function: the eager
+    chain of torch ops around ``PopConv3x3Fn``, which autograd
+    differentiates."""
+    import torch.nn.functional as F
+    from gentun_tpu_torch.ops.pop_conv import PopConv3x3Fn
+
+    dt, k, pop, b = x.dtype, masks.k, masks.slots, x.shape[0]
+    adj, entry, active = (m.to(dt) for m in masks[:3])
+    sc = lambda v, t: v.view(1, -1, 1, 1, 1) * t
+    a0 = F.relu(PopConv3x3Fn.apply(x, params[0], params[1], shared))
+    hh, ww = a0.shape[-2:]
+    a0 = a0.reshape(b, pop, -1, hh, ww)
+    outs = []
+    for j in range(k):
+        inp = sc(entry[:, j], a0)
+        for i in range(j):
+            inp = inp + sc(adj[:, i, j], outs[i])
+        h = F.relu(PopConv3x3Fn.apply(inp.reshape(b, -1, hh, ww), params[2 + 2 * j],
+                                      params[3 + 2 * j]))
+        outs.append(sc(active[:, j], h.reshape(b, pop, -1, hh, ww)))
+    xs = chain_merge(torch, a0, outs, masks)
+    if exit_conv:
+        xs = F.relu(PopConv3x3Fn.apply(xs, params[-2], params[-1]))
+    return F.max_pool2d(xs, 2)
+
+
+def dag_stage_fn_checks(torch):
+    """Gates of the whole stage on the card, bf16 and float32: (1) the stage
+    function (the conv and DAG kernels) gives the bits of autograd of the
+    eager chain, output and every gradient (config #2's stage 1 at P=4,
+    B=64, and with the exit conv); (2) purity: slot 7 of an S=20 call gives
+    the same output and gradients alone (S=1).  Returns the rows."""
+    from gentun_tpu_torch.ops.pop_dag import DagMasks, pop_stage
+
+    dev, rows = torch.device("cuda"), []
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for slots, b, exit_conv in ((4, 64, False), (4, 16, True), (POP, 64, False)):
+            k, c, f, h = NODES[1], FILTERS[0], FILTERS[1], 16
+            gen = torch.Generator(device=dev).manual_seed(slots + int(exit_conv))
+            rnd = lambda *shape, sd=1.0: (torch.randn(*shape, generator=gen, device=dev) * sd).to(dt)
+            masks = stage_masks_of(torch, random_population(NODES, slots, seed=2), NODES, 1)
+            x = rnd(b, slots * c, h, h).requires_grad_()
+            params = [rnd(slots, f, c, 3, 3, sd=(9 * c) ** -0.5), rnd(slots, f, sd=0.1)]
+            for _ in range(k + int(exit_conv)):
+                params += [rnd(slots, f, f, 3, 3, sd=(9 * f) ** -0.5), rnd(slots, f, sd=0.1)]
+            params = [p.requires_grad_() for p in params]
+            z = pop_stage(x, masks, params)
+            gz = rnd(*z.shape)
+            grads = torch.autograd.grad(z, [x, *params], gz)
+            if slots == POP:  # purity: slot 7 alone
+                sl = 7
+                x1 = x.detach().view(b, slots, c, h, h)[:, sl].contiguous().requires_grad_()
+                m1 = DagMasks(*(m[sl:sl + 1].contiguous() for m in masks))
+                p1 = [p.detach()[sl:sl + 1].contiguous().requires_grad_() for p in params]
+                z1 = pop_stage(x1, m1, p1)
+                g1 = torch.autograd.grad(z1, [x1, *p1], gz.view(b, slots, f, h // 2, h // 2)[:, sl]
+                                         .contiguous())
+                ok = (torch.equal(z1, z.view(b, slots, f, h // 2, h // 2)[:, sl])
+                      and torch.equal(g1[0], grads[0].view(b, slots, c, h, h)[:, sl])
+                      and all(torch.equal(a[0], full[sl]) for a, full in zip(g1[1:], grads[1:])))
+                what = f"slot {sl} of S={slots} alone (S=1), output and every gradient"
+            else:
+                want = chain_stage(torch, x, masks, params, False, exit_conv)
+                wgrads = torch.autograd.grad(want, [x, *params], gz)
+                ok = torch.equal(z, want) and all(torch.equal(a, w) for a, w in zip(grads, wgrads))
+                what = (f"stage function vs autograd of the eager chain, S={slots} B={b}"
+                        f"{' with the exit conv' if exit_conv else ''}, output and every gradient")
+            log(f"[K] dag {dtype:8s} {what}: {'same bits' if ok else 'DIFFER'}")
+            rows.append({"dtype": dtype, "what": what, "same_bits": ok})
+            check(ok, f"{dtype} {what}")
+    return rows
+
+
+def dag_pool_ties(torch):
+    """The pool's window rule on the card against ``F.max_pool2d``: an
+    all-zero window (negative inputs after ReLU), tied maxima, NaN, and an
+    odd last row and column; the value, the argmax as ``F.max_pool2d``'s
+    flat index, and the gradient routed to it, bit for bit, bf16 and float32,
+    on the kernels' vector path (16 wide) and their one-element path (7
+    wide).  Returns the rows."""
+    import torch.nn.functional as F
+    from gentun_tpu_torch.ops import pop_dag as pd
+
+    dev, rows = torch.device("cuda"), []
+    base = [[-1.0, -2.0, 2.0, 2.0, 1.0, 3.0, 1.0, float("nan")],
+            [-3.0, -0.5, 2.0, 2.0, 3.0, 0.0, float("nan"), 2.0],
+            [0.0, 0.0, 5.0, -1.0, 4.0, 4.0, 7.0, 7.0],
+            [0.0, 0.0, -1.0, 5.0, 4.0, 4.0, 6.0, 7.0],
+            [9.0, 8.0, 9.0, 8.0, 9.0, 8.0, 9.0, 8.0]]
+    masks = pd.DagMasks(*(torch.zeros(shape, device=dev) for shape in ((1, 0, 0), (1, 0), (1, 0), (1, 0))),
+                        torch.ones(1, device=dev))
+    for dtype in ("bfloat16", "float32"):
+        for width in (16, 7):
+            rows_ = [(r * 2)[:width] for r in base]
+            y = torch.tensor(rows_, device=dev).to(getattr(torch, dtype)).view(1, 1, 5, width)
+            z, arg = pd.pop_dag_stage_out(y, [], masks, True)
+            want, idx = F.max_pool2d(torch.relu(y), 2, return_indices=True)
+            ho = torch.arange(z.shape[-2], device=dev).view(-1, 1)
+            wo = torch.arange(z.shape[-1], device=dev).view(1, -1)
+            flat = (2 * ho + arg[0, 0].long() // 2) * width + 2 * wo + arg[0, 0].long() % 2
+            gz = torch.arange(1, z.numel() + 1, device=dev, dtype=torch.float32).to(y.dtype).view(z.shape)
+            dy = pd.pop_dag_node_grad(y, gz, arg, "plain", -1, [], masks)
+            yy = y.clone().requires_grad_()
+            (g,) = torch.autograd.grad(F.max_pool2d(torch.relu(yy), 2), yy, gz)
+            ok = same_bits(torch, z, want) and torch.equal(flat, idx[0, 0]) and same_bits(torch, dy, g)
+            log(f"[K] dag pool rule {dtype} 5x{width} (all-zero, tied and NaN windows, odd edge) "
+                f"vs F.max_pool2d: {'same values, argmax and gradient' if ok else 'DIFFER'}")
+            rows.append({"dtype": dtype, "width": width, "same": ok})
+            check(ok, f"the pool's window rule vs F.max_pool2d, {dtype}, 5x{width}")
+    return rows
+
+
+def phase_dag_edges(torch):
+    """The DAG kernels at the edge cases, each call against its plain
+    version bit for bit, bf16 and float32: a stage of 4 nodes whose slot 0
+    decodes empty (has_active = 0), slot 1 with isolated nodes and slot 2 a
+    full DAG, on odd 7×9 images (the one-element path and a floored pool)
+    with inf and NaN among the inputs, with and without the exit conv, and
+    on 8×16 (the vector path) with the exit conv, and without it with the
+    plain version in slices of 2 of 5 images; float64 once; then the
+    pool's window rule and the whole-stage gates.  Returns the rows."""
+    t0 = time.monotonic()
+    edges = [{"S_1": (0,) * 6}, {"S_1": (1, 0, 0, 0, 0, 0)}, {"S_1": (1,) * 6}]
+    masks = stage_masks_of(torch, edges, (4,), 0)
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        for exit_conv in (False, True):
+            rows += dag_stage_rows(torch, dtype, masks, 5, 8, 7, 9, exit_conv=exit_conv,
+                                   nonfinite=True, seed=21)
+        rows += dag_stage_rows(torch, dtype, masks, 4, 16, 8, 16, exit_conv=True, seed=22)
+        rows += dag_stage_rows(torch, dtype, masks, 5, 16, 8, 16, seed=24, plain_rows=2)
+        log(f"[K] dag edges {dtype}: has_active 0, isolated nodes, a full DAG; 7x9 with inf and "
+            f"NaN, with and without the exit conv; 8x16 with the exit conv; 8x16 B=5 held in "
+            f"slices of 2 images: every call the plain version's bits")
+    rows += dag_stage_rows(torch, "float64", masks, 3, 8, 8, 8, seed=23)
+    log("[K] dag float64 S=3 k=4 F=8 8x8: every call the plain version's bits")
+    rows += dag_pool_ties(torch)
+    rows += dag_stage_fn_checks(torch)
+    log(f"[K] dag edge cases and whole-stage gates took {time.monotonic() - t0:.1f} s")
+    return rows
+
+
 def add_per_step(tot, r, n):
     """Add ``n`` calls of row ``r`` to a kernel's per-step totals."""
     for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ops_ms", "bound_bytes_ms"):
@@ -539,15 +997,22 @@ def step_kernels(torch, tag, nodes, filters, slots, dtype, per_step=None, batch=
             log(f"[{tag}] bfloat16 fwd   {name:12s} eval B=1024 P={slots}: err {r['rel_err']:.2e}; "
                 f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}, cuDNN grouped "
                 f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} ms x{n} per eval batch")
+    rows += step_dag(torch, tag, nodes, filters, slots, dtype, per_step, batch)
     return rows
 
 
 def log_per_step(tag, what, per_step):
     for kname, tot in per_step.items():
+        library = ("no one library call" if tot["library_ms"] is None
+                   else f"cuDNN {tot['library_ms']:.3f}")
+        pool = (f", F.max_pool2d {tot['max_pool2d_ms']:.3f} ms for the pool"
+                if "max_pool2d_ms" in tot else "")
+        pool += (f", the eager chain {tot['chain_ms']:.3f} ms for the same work"
+                 if "chain_ms" in tot else "")
         log(f"[{tag}] {kname} per {what} train step (bf16, {tot['calls']} calls): kernel "
-            f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f}, cuDNN {tot['library_ms']:.3f}, "
+            f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f}, {library}, "
             f"bound {tot['bound_ms']:.3f} ms ({tot.get('bound_bytes_calls_ms', 0.0):.3f} in calls "
-            f"bound by bytes, {tot.get('bound_ops_calls_ms', 0.0):.3f} by operations); "
+            f"bound by bytes, {tot.get('bound_ops_calls_ms', 0.0):.3f} by operations){pool}; "
             f"max abs err {tot['max_abs_err']:.3e}")
 
 
@@ -559,7 +1024,7 @@ def phase_kernels(torch):
     float64 once; every role at ``EDGE_SHAPES``; then
     :func:`kernel_purity`.
     Returns per-step totals of the timed bf16 config #2 calls."""
-    per_step = {"pop_conv3x3_fwd": {}, "pop_conv3x3_wgrad": {}}
+    per_step = new_per_step()
     rows = step_kernels(torch, "K", NODES, FILTERS, POP, "bfloat16", per_step)
     rows += step_kernels(torch, "K", NODES, FILTERS, POP, "float32")
     for dtype in ("bfloat16", "float32"):
@@ -587,6 +1052,7 @@ def phase_kernels(torch):
                 log(f"[K] edge {dtype} {role} S={slots} C={c} F={f} B={b} {h}x{wd}"
                     f"{' shared' if shared else ''}: err {r['rel_err']:.2e} (tol {r['tol']:.0e})")
     rows.extend(kernel_purity(torch))
+    rows.extend(phase_dag_edges(torch))
     log_per_step("K", "config #2", per_step)
     return per_step, rows
 
@@ -595,7 +1061,7 @@ def phase_kernels_deep(torch, slots: int):
     """Both kernels at every conv shape of config #5's train step and eval
     forward (bf16), at ``slots`` (the width phase D's programs ran), each
     held against its plain version.  Returns per-step totals."""
-    per_step = {"pop_conv3x3_fwd": {}, "pop_conv3x3_wgrad": {}}
+    per_step = new_per_step()
     step_kernels(torch, "K5", DEEP_NODES, DEEP_FILTERS, slots, "bfloat16", per_step)
     log_per_step("K5", f"config #5 (P={slots})", per_step)
     return per_step
@@ -2225,11 +2691,18 @@ def _bound_by(tot) -> str:
     return "bytes" if tot["bound_bytes_ms"] >= tot["bound_ops_ms"] else "operations"
 
 
+def _pool(tot):
+    """``F.max_pool2d``'s time for the pool the stage-output kernel fuses,
+    where the kernel has one, and the eager chain's time for a DAG kernel's
+    work (``chain_ms``), where it was timed."""
+    return {key: tot[key] for key in ("max_pool2d_ms", "chain_ms") if key in tot}
+
+
 def _sub(tot, extra):
     """A kernel's per-step numbers in a ``kernels`` sub-entry."""
     return {"max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": _bound_by(tot),
-            "library_ms": tot["library_ms"], **extra}
+            "library_ms": tot["library_ms"], **_pool(tot), **extra}
 
 
 def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
@@ -2249,30 +2722,31 @@ def kernels_line(per_step, launches, deep_per_step, deep_launches, deep_slots,
     mesh) and the kernels' times at one rank's shapes there (phase MK); under
     ``studies`` the launches of phase S: S1-S3 in this process, and S4's
     worker processes over both variants."""
-    where = replaces(KERNEL_SOURCE)
+    where = {**replaces(KERNEL_SOURCE), **replaces(DAG_SOURCE)}
     out = []
     for name, tot in per_step.items():
         deep, asy = deep_per_step[name], async_per_step[name]
         out.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda",
+            "source": DAG_SOURCE if name in DAG_KERNELS else KERNEL_SOURCE,
             "replaces": where[name], "launches": launches[name],
             "max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
             "bound_by": _bound_by(tot),
-            "library_ms": tot["library_ms"],
+            "library_ms": tot["library_ms"], **_pool(tot),
             "per": f"config #2 train step, bf16, pop {POP}, batch 256: {tot['calls']} calls",
             "deep": {
                 "launches": deep_launches[name], "max_abs_err": deep["max_abs_err"],
                 "ms": deep["ms"], "plain_ms": deep["plain_ms"], "bound_ms": deep["bound_ms"],
                 "bound_by": _bound_by(deep),
-                "library_ms": deep["library_ms"],
+                "library_ms": deep["library_ms"], **_pool(deep),
                 "per": f"config #5 train step, bf16, pop {deep_slots}, batch 256: "
                        f"{deep['calls']} calls",
             },
             "async": {
                 "launches": async_launches[name], "max_abs_err": asy["max_abs_err"],
                 "ms": asy["ms"], "plain_ms": asy["plain_ms"], "bound_ms": asy["bound_ms"],
-                "bound_by": _bound_by(asy), "library_ms": asy["library_ms"],
+                "bound_by": _bound_by(asy), "library_ms": asy["library_ms"], **_pool(asy),
                 "per": f"config #2 train step, bf16, pop 2 (one genome an evaluation), "
                        f"batch 256: {asy['calls']} calls",
             },
@@ -2422,7 +2896,7 @@ def main() -> int:
     executors = phase_executors(x, y, genomes, batches)
     phase_ga()
     asynchronous, async_launches = phase_async(torch, x, y, os.path.join(REPO, "build", "chip_smoke"))
-    async_per_step = {"pop_conv3x3_fwd": {}, "pop_conv3x3_wgrad": {}}
+    async_per_step = new_per_step()
     step_kernels(torch, "A", NODES, FILTERS, 2, "bfloat16", async_per_step)
     log_per_step("A", "config #2 (P=2)", async_per_step)
     del x, y, genomes, bf16_calls, batches
@@ -2453,10 +2927,10 @@ def main() -> int:
     mesh, mesh_launches, big_launches = phase_mesh(
         torch, os.path.join(REPO, "build", "chip_smoke"), main_accs,
         main_result["individuals_per_hour"], pair, pair_accs, budget["wall_s"], local_fitness)
-    mesh_per_step = {"pop_conv3x3_fwd": {}, "pop_conv3x3_wgrad": {}}
+    mesh_per_step = new_per_step()
     step_kernels(torch, "MK", NODES, FILTERS, POP // 2, "bfloat16", mesh_per_step)
     log_per_step("MK", f"config #2 (P={POP // 2}, an M1 rank's share)", mesh_per_step)
-    big_per_step = {"pop_conv3x3_fwd": {}, "pop_conv3x3_wgrad": {}}
+    big_per_step = new_per_step()
     step_kernels(torch, "MK", DEEP_NODES, DEEP_FILTERS, 1, "bfloat16", big_per_step, batch=128)
     log_per_step("MK", "config #5 (P=1, batch 128, an M2 rank's share)", big_per_step)
     summary = {"main_path": main_result, "launches": launches, "purity_max_abs_diff": purity,

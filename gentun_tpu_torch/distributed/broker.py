@@ -400,6 +400,14 @@ class JobBroker:
         self._cond = threading.Condition()
         self._results: Dict[str, float] = {}
         self._failures: Dict[str, str] = {}
+        # Journaled broker only: ids the in-process master has gathered
+        # whose terminal record may still sit in the journal's unsynced
+        # buffer.  A kill() drops that buffer, so replay would find such a
+        # job open and run it again, and its second result would land here
+        # after the master already took the first: an orphan.  Replay drops
+        # these ids instead; each journal flush forgets the ids it made
+        # durable, so the set holds one fsync interval's gathers.
+        self._consumed: Set[str] = set()
         # Running max of the fleet's advertised chip total, sampled whenever
         # a result arrives (a worker that disconnects right after
         # its final result must still count in the per-chip denominator).
@@ -562,7 +570,18 @@ class JobBroker:
             for frame in s["parked"]:
                 sess.undelivered.append(frame)
         memo: dict = {}
+        with self._cond:
+            gathered = {j for j in state.jobs if j in self._consumed}
+        if gathered:
+            # The master took these results before the crash; only their
+            # completion records died in the abandoned buffer.  Close them
+            # for good instead of running them again.
+            journal.record_cancel(sorted(gathered))
+            logger.info("replay: %d job(s) the master already gathered dropped, not requeued",
+                        len(gathered))
         for job_id, job in state.jobs.items():
+            if job_id in gathered:
+                continue
             payload, sid = job["p"], job["sid"]
             gk = job["gk"] or genome_key(payload.get("genes"))
             jw = build_job_wire(job_id, payload, gk, self._frag_cache, memo)
@@ -615,7 +634,15 @@ class JobBroker:
             return
         while not self._stopping:
             await asyncio.sleep(self._journal_fsync_interval)
+            with self._cond:
+                synced = set(self._consumed)
             journal.flush()
+            if synced and not journal.wedged:
+                # Every gathered result's record was appended before the
+                # master could take it (same loop callback), so this flush
+                # made the snapshot's ids durable.
+                with self._cond:
+                    self._consumed -= synced
             journal.maybe_compact()
             if _tele.enabled():
                 reg = _get_registry()
@@ -697,6 +724,9 @@ class JobBroker:
                 job_id, payload, genome_key(payload.get("genes")),
                 self._frag_cache, memo)
 
+        if self._consumed:
+            with self._cond:  # an id submitted again is live again
+                self._consumed.difference_update(payloads)
         self._loop.call_soon_threadsafe(
             self._enqueue_jobs, dict(payloads), sid, wires)
 
@@ -918,6 +948,8 @@ class JobBroker:
             self._results.pop(j, None)
             self._failures.pop(j, None)
             self._fail_counts.pop(j, None)
+        if self._journal_path is not None:
+            self._consumed.update(want)
 
     def _cancel_jobs(self, job_ids: Set[str]) -> None:
         """Withdraw still-open jobs (loop-thread async; safe from any thread).

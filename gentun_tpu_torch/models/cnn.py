@@ -14,7 +14,11 @@ fitness = mean validation accuracy.  How it runs differs:
   shares.  The dense head is per genome: one ``torch.mm`` per genome.
 - **Masks are data.**  Every genome runs the same supergraph; the mask
   scalars (``adj``, ``entry``, ``active``, ``exit``, ``has_active``) multiply
-  in the compute dtype exactly where the reference multiplies them.
+  in the compute dtype exactly where the reference multiplies them.  Each
+  stage is one :class:`~..ops.pop_dag.PopStageFn`: its convs, the masked
+  node sums, ReLU, the stage output and the 2×2 max-pool run in the port's
+  hand-written kernels (``ops/pop_dag.py``, ``csrc/pop_dag.cu``), forward
+  and backward, with the eager chain's rounding.
 - **bfloat16 compute, float32 params and logits** by explicit casts that
   follow flax's ``dtype=`` semantics (params are cast to the compute dtype
   inside each layer; the last Dense and the logits are float32).  No
@@ -75,7 +79,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dag import stack_genome_masks
-from ..ops.pop_conv import PopConv3x3Fn
+from ..ops.pop_dag import pop_stage, stage_masks
 from ..parallel import multihost
 from ..parallel.mesh import (
     SIZE_SMALL,
@@ -112,12 +116,13 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 class _PopConv3x3(nn.Module):
-    """P independent 3×3 SAME convs (+bias), one :class:`PopConv3x3Fn` call.
+    """The params of P independent 3×3 SAME convs (+bias), which
+    :class:`PopStageFn` runs.
 
     ``weight`` is ``(P, F, C, 3, 3)`` (OIHW per genome), ``bias`` ``(P, F)``.
     With ``shared_input`` the input is ``(B, C, H, W)``, read by every
-    genome; otherwise it is ``(B, P·C, H, W)``.  Params are cast to the
-    compute dtype inside the call, as flax's ``nn.Conv(dtype=...)`` does.
+    genome; otherwise it is ``(B, P·C, H, W)``.  :meth:`cast` gives them in
+    the compute dtype, as flax's ``nn.Conv(dtype=...)`` casts them.
     """
 
     def __init__(self, pop: int, c_in: int, features: int, shared_input: bool, device=None):
@@ -126,8 +131,8 @@ class _PopConv3x3(nn.Module):
         self.bias = nn.Parameter(torch.empty(pop, features, device=device))
         self.shared_input = shared_input
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return PopConv3x3Fn.apply(x, self.weight.to(dtype), self.bias.to(dtype), self.shared_input)
+    def cast(self, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.weight.to(dtype), self.bias.to(dtype)
 
 
 class _PopDense(nn.Module):
@@ -148,11 +153,6 @@ class _PopDense(nn.Module):
         slots = zip(x.contiguous().unbind(0), self.weight.to(dtype).unbind(0),
                     self.bias.to(dtype).unbind(0))
         return torch.stack([torch.mm(xp, wp) + bp for xp, wp, bp in slots])
-
-
-def _scale(v: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Per-genome scalar ``v (P,)`` times ``t (B, P, C, H, W)``."""
-    return v.view(1, -1, 1, 1, 1) * t
 
 
 class MaskedGeneticCnn(nn.ModuleDict):
@@ -225,34 +225,11 @@ class MaskedGeneticCnn(nn.ModuleDict):
         pop, b = self.pop, x.shape[0]
         x = x.to(dtype)
         for s, k in enumerate(self.nodes):
-            m = masks[s]
-            a0 = F.relu(self[f"stage{s}_entry"](x, dtype))
-            hh, ww = a0.shape[-2:]
-            a0 = a0.reshape(b, pop, -1, hh, ww)
-            adj = m["adj"].to(dtype)
-            entry = m["entry"].to(dtype)
-            active = m["active"].to(dtype)
-            exit_ = m["exit"].to(dtype)
-            has_active = m["has_active"].to(dtype)
-            outs: List[torch.Tensor] = []
-            for j in range(k):
-                inp = _scale(entry[:, j], a0)
-                for i in range(j):
-                    inp = inp + _scale(adj[:, i, j], outs[i])
-                h = F.relu(self[f"stage{s}_node{j}"](inp.reshape(b, -1, hh, ww), dtype))
-                # Zero inactive nodes so they cannot leak into any sum.
-                outs.append(_scale(active[:, j], h.reshape(b, pop, -1, hh, ww)))
-            if k:
-                out = _scale(exit_[:, 0], outs[0])
-                for i in range(1, k):
-                    out = out + _scale(exit_[:, i], outs[i])
-                x = _scale(has_active, out) + _scale(1.0 - has_active, a0)
-            else:
-                x = a0
-            x = x.reshape(b, -1, hh, ww)
+            layers = [f"stage{s}_entry", *(f"stage{s}_node{j}" for j in range(k))]
             if self.stage_exit_conv:
-                x = F.relu(self[f"stage{s}_exit"](x, dtype))
-            x = F.max_pool2d(x, 2)
+                layers.append(f"stage{s}_exit")
+            params = [p for name in layers for p in self[name].cast(dtype)]
+            x = pop_stage(x, stage_masks(masks[s], x.device), params, shared=(s == 0))
         x = x.reshape(b, pop, -1).transpose(0, 1)
         x = F.relu(self["Dense_0"](x, dtype))
         if dropout_gens is not None:

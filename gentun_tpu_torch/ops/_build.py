@@ -22,7 +22,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -40,6 +40,23 @@ _build_dir: Path = BUILD_DIR
 #: library built earlier.
 build_log = ""
 
+#: Kernel launches per wrapper of the library, counted where a kernel is
+#: launched and nowhere else (a CPU call launches nothing).  One table for
+#: every wrapper module: ``pop_conv.LAUNCHES`` and ``pop_dag.LAUNCHES`` are it.
+LAUNCHES: Dict[str, int] = {
+    name: 0 for name in ("pop_conv3x3_fwd", "pop_conv3x3_wgrad", "pop_dag_node_input",
+                         "pop_dag_stage_out", "pop_dag_node_grad")
+}
+#: Guards the read-modify-write of a count: evaluations on several threads
+#: launch at once, and a bare ``+= 1`` can lose a count between them.
+_launch_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
+
+
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "gentun_pop_conv3x3_fwd": (_I, [_I, _P, _P, _P, _P, *[_I] * 6, _L, _L, _P]),
@@ -48,6 +65,9 @@ _SIGNATURES = {
     "gentun_pop_conv3x3_wgrad": (_I, [_I, *[_P] * 6, *[_I] * 8, _L, _L, _P]),
     "gentun_pop_conv3x3_wgrad_bf16_config": (_I, [_I, *[_P] * 6, *[_I] * 8, _L, _L, _P]),
     "gentun_pop_conv3x3_wgrad_bf16_pick": (_I, [_I] * 4),
+    "gentun_pop_dag_node_input": (_I, [_I, _P, _P, _I, _P, _P, _P, _I, _P, *[_I] * 5, _P]),
+    "gentun_pop_dag_stage_out": (_I, [_I, _P, _P, _I, *[_P] * 5, *[_I] * 6, _P]),
+    "gentun_pop_dag_node_grad": (_I, [_I, *[_P] * 4, *[_I] * 3, *[_P] * 6, *[_I] * 5, _P]),
     "gentun_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -96,8 +116,10 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns its path.
 
-    The compiler writes to a temporary name that is renamed into place, so
-    no process ever loads a half-written file.  Processes that share the
+    Each ``.cu`` compiles in an ``nvcc`` of its own, all at once, and one
+    more links the objects; the library is written to a temporary name
+    that is renamed into place, so no process ever loads a half-written
+    file.  Processes that share the
     build directory (the ranks of a worker on one host) take an exclusive
     ``flock`` on it first: one builds, the others wait and load its file.
     The kernel drops the lock with its holder, so a killed build leaves no
@@ -114,13 +136,34 @@ def build() -> Path:
         if out.exists():  # another process built it while this one waited
             return out
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
         logger.info("building %s with nvcc", out)
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}")
+        # One nvcc per source, all started together, then one link: the
+        # build takes its slowest source's time, not the sum.
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = tmp.with_name(f"{tmp.stem}.{src.stem}.o")
+            cmd = [_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+        try:
+            if not failed:
+                cmd = [_nvcc(), "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                logs.append(proc.stdout + proc.stderr)
+                if proc.returncode != 0:
+                    failed.append(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}")
+        finally:
+            for _, obj, _ in jobs:
+                obj.unlink(missing_ok=True)
+        build_log = "".join(logs)
+        if failed:
+            raise RuntimeError("\n".join(failed) + "\n" + build_log)
         os.replace(tmp, out)
         return out
     finally:

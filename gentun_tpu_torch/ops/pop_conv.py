@@ -27,7 +27,6 @@ other slots are.
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -44,20 +43,14 @@ __all__ = [
     "pop_conv3x3_reference",
     "pop_conv3x3_wgrad_reference",
     "tap_major",
+    "turned",
     "wgrad_split",
 ]
 
 #: Kernel launches per wrapper, counted where the kernel is launched and
-#: nowhere else (a CPU call launches nothing).
-LAUNCHES: Dict[str, int] = {"pop_conv3x3_fwd": 0, "pop_conv3x3_wgrad": 0}
-#: Guards the read-modify-write of a count: evaluations on several threads
-#: launch at once, and a bare ``+= 1`` can lose a count between them.
-_LAUNCH_LOCK = threading.Lock()
-
-
-def _count_launch(name: str) -> None:
-    with _LAUNCH_LOCK:
-        LAUNCHES[name] += 1
+#: nowhere else (a CPU call launches nothing): the library's one table,
+#: shared with ``pop_dag.LAUNCHES``.
+LAUNCHES: Dict[str, int] = _build.LAUNCHES
 
 
 #: Pixels per split of the float32 and float64 weight gradient, whose FMA
@@ -214,7 +207,7 @@ def pop_conv3x3_fwd(
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(rc, "pop_conv3x3_fwd")
-    _count_launch("pop_conv3x3_fwd")
+    _build.count_launch("pop_conv3x3_fwd")
     return y
 
 
@@ -247,8 +240,14 @@ def pop_conv3x3_wgrad(
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(rc, "pop_conv3x3_wgrad")
-    _count_launch("pop_conv3x3_wgrad")
+    _build.count_launch("pop_conv3x3_wgrad")
     return dw, db
+
+
+def turned(weight: torch.Tensor) -> torch.Tensor:
+    """The weights whose forward conv is the input gradient: turned 180°,
+    in and out channels swapped."""
+    return weight.flip(-1, -2).transpose(1, 2).contiguous()
 
 
 class PopConv3x3Fn(torch.autograd.Function):
@@ -272,8 +271,7 @@ class PopConv3x3Fn(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            turned = weight.flip(-1, -2).transpose(1, 2).contiguous()
-            dx = pop_conv3x3_fwd(dy, turned, None)
+            dx = pop_conv3x3_fwd(dy, turned(weight), None)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dw, db = pop_conv3x3_wgrad(x, dy, weight.shape, ctx.shared)
         return dx, dw, db if ctx.has_bias else None, None

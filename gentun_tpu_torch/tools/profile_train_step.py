@@ -10,9 +10,10 @@ port's own init, then, under the executor's precision setting
 - times 5 train steps and one eval batch with CUDA events (after 3 warm-up
   steps);
 - traces the same steps with ``torch.profiler`` and prints the device
-  kernels by total time, grouped (the port's own conv kernels, library
-  convolution, matmul, elementwise, pooling, reduction, copy, other) and one
-  by one, with the device's busy share of the traced wall time.
+  kernels by total time and launches a step, grouped (the port's own conv
+  kernels, its stage-DAG kernels, library convolution, matmul, pooling,
+  reduction, copy, elementwise, other) and one by one, with the device's
+  busy share of the traced wall time.
 
 Prints the numbers as one JSON line after the table.  Needs a CUDA
 device; exits 2 without one, and 1 if a library (cuDNN) convolution kernel
@@ -37,6 +38,8 @@ POP, STEPS = 20, 5
 GROUPS = [
     ("port conv", re.compile(r"fwd_bf16_kernel|fwd_fma_kernel|wgrad_bf16_kernel|wgrad_fma_kernel|"
                              r"wgrad_finalize_kernel")),
+    # ahead of "elementwise", whose mul|add|relu would file the DAG kernels
+    ("port DAG", re.compile(r"dag_node_input_kernel|dag_stage_out_kernel|dag_node_grad_kernel")),
     ("convolution", re.compile(r"conv|cudnn|implicit|winograd|dgrad|wgrad|fprop", re.I)),
     ("matmul", re.compile(r"gemm|bmm|matmul|cutlass|nvjet", re.I)),
     ("pooling", re.compile(r"pool", re.I)),
@@ -138,9 +141,11 @@ def main() -> int:
             busy_us += t1 - edge
             edge = t1
     busy_ms = busy_us / 1e3
-    groups = {}
+    groups, group_launches = {}, {}
     for name, us in kernels.items():
         groups[_group(name)] = groups.get(_group(name), 0.0) + us / 1e3 / STEPS
+    for name, _, _ in spans:
+        group_launches[_group(name)] = group_launches.get(_group(name), 0) + 1 / STEPS
     kernel_ms = sum(kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
 
@@ -149,10 +154,11 @@ def main() -> int:
           f"(CUDA events, {STEPS} steps); eval batch of 1024: {eval_ms:.3f} ms")
     print(f"traced {STEPS} steps: wall {traced_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"(busy share {busy_ms / traced_ms:.3f}; kernel times summed {kernel_ms:.3f} ms, "
-          f"{len(spans)} kernel launches)")
+          f"{len(spans)} kernel launches, {len(spans) / STEPS:.1f} a step)")
     print("per step, grouped:")
     for label, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {label:12s} {ms:9.3f} ms  {ms / max(kernel_ms / STEPS, 1e-9):6.1%}")
+        print(f"  {label:12s} {ms:9.3f} ms  {ms / max(kernel_ms / STEPS, 1e-9):6.1%}  "
+              f"{group_launches[label]:6.1f} launches")
     print("top kernels (total over the traced steps):")
     for name, us in top:
         print(f"  {us / 1e3:9.3f} ms  [{_group(name)}] {name[:110]}")
@@ -160,7 +166,8 @@ def main() -> int:
         "card": smi, "pop": POP, "steps": STEPS, "step_ms": step_ms,
         "eval_batch_1024_ms": eval_ms, "traced_wall_ms": traced_ms,
         "device_busy_ms": busy_ms, "kernel_ms_summed": kernel_ms, "launches": len(spans),
-        "groups_ms_per_step": groups,
+        "launches_per_step": len(spans) / STEPS, "groups_ms_per_step": groups,
+        "groups_launches_per_step": group_launches,
         "top_kernels_ms": {k: v / 1e3 for k, v in top},
     }
     out["library_conv_launches"] = sum(1 for name, _, _ in spans if _group(name) == "convolution")

@@ -365,3 +365,50 @@ def test_submits_a_restarted_broker_lost_are_submitted_again(tmp_path):
     finally:
         stop.set()
         broker.stop()
+
+
+def test_a_result_the_master_gathered_is_not_run_again_after_a_restart(tmp_path):
+    """A master gathers a result whose completion record is still in the
+    journal's unsynced buffer when the broker is killed.  The restarted
+    broker replays the job as open; it must drop it, not run it again: a
+    second result would land in the results table after the master took the
+    first, an orphan no gather ever drains."""
+    import socket
+
+    from gentun_tpu_torch import Population
+    from gentun_tpu_torch.distributed import JobBroker
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    broker = JobBroker(port=port, journal_path=str(tmp_path / "broker.journal"),
+                       journal_fsync_interval=3600.0).start()
+    stop = threading.Event()
+    try:
+        pop = DistributedPopulation(OneMax, size=2, seed=0, host="127.0.0.1", port=port,
+                                    broker=broker, job_timeout=60)
+        first, second = (list(Population(OneMax, *DATA, size=2, seed=seed)) for seed in (1, 2))
+        ids = pop.submit_individuals(first)
+        deadline = time.monotonic() + 10.0
+        while broker.unknown_jobs(ids) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert broker.unknown_jobs(ids) == set()
+        broker._journal.flush()  # the submits are durable; what follows is not
+        client = GentunClient(OneMax, *DATA, host="127.0.0.1", port=port,
+                              heartbeat_interval=0.2, reconnect_delay=0.05)
+        threading.Thread(target=client.work, kwargs={"stop_event": stop}, daemon=True).start()
+        assert broker.gather(ids, timeout=30) == {j: ind.evaluate() for j, ind in zip(ids, first)}
+        broker.kill()  # the completion records die with the unsynced buffer
+        broker.start()
+        assert broker.epoch == 2
+        assert broker.unknown_jobs(ids) == set(ids)  # dropped at replay, not requeued
+        # The same worker reconnects and serves a new generation; nothing of
+        # the gathered one comes back.
+        later = pop.submit_individuals(second)
+        assert broker.gather(later, timeout=30) == {
+            j: ind.evaluate() for j, ind in zip(later, second)}
+        assert set(broker.outstanding().values()) == {0}
+        pop.close()
+    finally:
+        stop.set()
+        broker.stop()

@@ -330,17 +330,34 @@ def test_wgrad_split_depends_on_the_shape_alone(shared, dtype):
 
 
 def test_build_signatures_declare_every_exported_entry_point():
-    """Every function of the sources' C interface has a ctypes signature in
-    ``_build._SIGNATURES`` (a missing one would pass pointers as 32-bit
-    ints), and every signature names a function the sources export."""
+    """Every function of the sources' C interface (the conv's and the stage
+    DAG's) has a ctypes signature in ``_build._SIGNATURES`` with one argument
+    type per parameter, pointers as ``c_void_p`` (a missing one would pass
+    pointers as 32-bit ints), and every signature names a function the
+    sources export."""
+    import ctypes
     import re
 
-    exported = set()
+    exported = {}
     for src in _build._sources():
         text = src.read_text()
         for block in re.findall(r'extern "C" \{(.*)\}\s*//\s*extern "C"', text, re.S):
-            exported.update(re.findall(r"^[\w\s\*]*?\b(gentun_\w+)\(", block, re.M))
-    assert exported == set(_build._SIGNATURES)
+            for name, params in re.findall(r"^[\w\s\*]*?\b(gentun_\w+)\(([^)]*)\)", block,
+                                           re.M):
+                exported[name] = [p.strip() for p in params.split(",") if p.strip()]
+    assert set(exported) == set(_build._SIGNATURES)
+    assert {"gentun_pop_dag_node_input", "gentun_pop_dag_stage_out",
+            "gentun_pop_dag_node_grad"} <= set(exported)
+    for name, params in exported.items():
+        argtypes = _build._SIGNATURES[name][1]
+        assert len(argtypes) == len(params), name
+        for param, argtype in zip(params, argtypes):
+            if "*" in param:
+                assert argtype is ctypes.c_void_p, (name, param)
+            elif param.startswith("long long"):
+                assert argtype is ctypes.c_longlong, (name, param)
+            else:
+                assert argtype is ctypes.c_int, (name, param)
 
 
 def test_tuning_tool_times_every_config2_weight_gradient():
