@@ -95,6 +95,7 @@ from ..parallel.mesh import (
 from ..telemetry import lineage as _lineage
 from ..telemetry import spans as _tele
 from ..telemetry.registry import get_registry as _get_registry
+from ..utils import profiling as _profiling
 from ..utils.device_state import mark_backend_used
 from ..utils.kernel_cache import default_cache_dir, enable_compilation_cache, run_publish_hooks
 from .generic import GentunModel
@@ -345,6 +346,38 @@ def _per_genome_loss(logits: torch.Tensor, y: torch.Tensor,
     return ce.view(pop, b).sum(dim=1) / batch
 
 
+#: The phases of a train step that ``_train_step`` times when asked.
+_PHASES = ("forward", "backward", "update")
+_NO_PHASE = contextlib.nullcontext()
+
+
+class _Phase:
+    """Add a train-step phase's host seconds (``time.perf_counter``) to
+    ``phases[name]``, inside its ``gentun.<name>`` range while a profiler
+    runs."""
+
+    __slots__ = ("phases", "name", "_t0", "_range")
+
+    def __init__(self, phases: Dict[str, float], name: str):
+        self.phases, self.name = phases, name
+
+    def __enter__(self):
+        self._range = _profiling.profiler_range(self.name)
+        if self._range is not None:
+            self._range.__enter__()
+        self._t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        self.phases[self.name] += time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+
+def _phase(phases: Optional[Dict[str, float]], name: str):
+    return _NO_PHASE if phases is None else _Phase(phases, name)
+
+
 def _train_step(
     model: MaskedGeneticCnn,
     masks: Masks,
@@ -359,6 +392,7 @@ def _train_step(
     microbatch: int = 1,
     batch_rows: Optional[Tuple[int, int, int]] = None,
     data_group=None,
+    phases: Optional[Dict[str, float]] = None,
 ) -> None:
     """One SGD step for all genomes, ``optax.sgd`` arithmetic.
 
@@ -373,28 +407,37 @@ def _train_step(
     n)`` of each micro-slice of ``n``: each loss is divided by ``n``, and the
     flattened gradients are summed over ``data_group`` in one ``all_reduce``
     before the update, so every rank of the row applies the same bits.
+
+    With a ``phases`` dict (keys ``_PHASES``) the step adds the host
+    seconds of its phases to it: ``forward`` (model and loss, each
+    micro-slice), ``backward`` (``autograd.grad`` and the gradient sums)
+    and ``update`` (the all-reduce and the SGD loop).
     """
     params = list(model.parameters())
     grads: Optional[List[torch.Tensor]] = None
     whole = None if batch_rows is None else batch_rows[2]
     for im in idx.view(microbatch, -1):
-        logits = model(x_full.index_select(0, im), masks, dropout_gens=gens, batch_rows=batch_rows)
-        loss = _per_genome_loss(logits, y_full.index_select(0, im), whole).sum()
-        g = torch.autograd.grad(loss, params)
-        grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
-    if data_group is not None:
-        import torch.distributed as dist
+        with _phase(phases, "forward"):
+            logits = model(x_full.index_select(0, im), masks, dropout_gens=gens,
+                           batch_rows=batch_rows)
+            loss = _per_genome_loss(logits, y_full.index_select(0, im), whole).sum()
+        with _phase(phases, "backward"):
+            g = torch.autograd.grad(loss, params)
+            grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
+    with _phase(phases, "update"):
+        if data_group is not None:
+            import torch.distributed as dist
 
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=data_group)
-        grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
-    with torch.no_grad():
-        for p, g, t in zip(params, grads, momentum_bufs):
-            if microbatch > 1:
-                g = g / microbatch
-            t.mul_(momentum).add_(g)
-            update = g + momentum * t if nesterov else t
-            p.add_(update * -lr)
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=data_group)
+            grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+        with torch.no_grad():
+            for p, g, t in zip(params, grads, momentum_bufs):
+                if microbatch > 1:
+                    g = g / microbatch
+                t.mul_(momentum).add_(g)
+                update = g + momentum * t if nesterov else t
+                p.add_(update * -lr)
 
 
 @torch.no_grad()
@@ -492,16 +535,21 @@ def exact_numerics():
                 matmul.allow_tf32 = _numerics_saved
 
 
-def _device_span(kind: str, t0: float, device: torch.device, attrs: Dict[str, Any]) -> None:
-    """End a telemetry span around device work: wait for the device (only
-    reached when telemetry is enabled), then record the span, with the name
-    of the thread that ran the work (evaluations may run on several).  The
-    wait is for the whole device: a span of one thread also covers work
-    that another thread queued on the shared stream before it."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    attrs = {**attrs, "thread": threading.current_thread().name}
-    _tele.record_span(kind, t0, time.monotonic() - t0, attrs=attrs)
+@contextlib.contextmanager
+def _device_span(kind: str, device: torch.device, attrs: Dict[str, Any]):
+    """A telemetry span around device work, with the name of the thread that
+    ran the work (evaluations may run on several): it opens (with its
+    profiler range) on entry and, before it closes, waits for the device.
+    The wait is for the whole device: a span of one thread also covers work
+    that another thread queued on the shared stream before it.  With
+    telemetry off it is the no-op span and nothing waits."""
+    if not _tele.enabled():
+        yield _tele.span(kind)
+        return
+    with _tele.span(kind, {**attrs, "thread": threading.current_thread().name}) as sp:
+        yield sp
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def _check_initial_params(
@@ -541,7 +589,11 @@ def _run_segmented(
 
     Per fold: load that fold's initial params into ``model``, zero the
     momentum, seed the per-genome dropout generators (of stream domain
-    ``domain``), run the schedule's steps, then the weighted eval.  Each
+    ``domain``), run the schedule's steps, then the weighted eval.  With
+    telemetry on, the fold's preamble is a ``fold_load`` span, each segment
+    a ``train`` span carrying its steps' phase seconds (``forward_s``,
+    ``backward_s``, ``update_s``), each eval an ``eval`` span, and the
+    final gather a ``fetch`` span.  Each
     fold's accuracies stay on the device until every fold is queued.  With
     ``warm_keys`` (the real genomes' hashes) fold 0's trained params go into
     the warm-start bank.
@@ -563,35 +615,38 @@ def _run_segmented(
     _check_initial_params(named, params, kfold)
     accs = []
     for f in range(kfold):
-        with torch.no_grad():
-            for name, p in named.items():
-                p.copy_(params[name][f])
-        momentum_bufs = [torch.zeros_like(p) for p in named.values()]
-        gens = _dropout_generators(cfg["seed"], f, hashes, device, domain) if dropout else None
-        bidx = torch.as_tensor(batch_idx[f], device=device)
+        with _tele.span("fold_load", {"fold": f}):
+            with torch.no_grad():
+                for name, p in named.items():
+                    p.copy_(params[name][f])
+            momentum_bufs = [torch.zeros_like(p) for p in named.values()]
+            gens = _dropout_generators(cfg["seed"], f, hashes, device, domain) if dropout else None
+            bidx = torch.as_tensor(batch_idx[f], device=device)
         with exact_numerics():
             for s, e in bounds:
-                t0 = time.monotonic()
-                for t in range(s, e):
-                    _train_step(
-                        model, masks, x_full, y_full, bidx[t], gens, momentum_bufs,
-                        lr_at(t), cfg["momentum"], cfg["nesterov"], microbatch,
-                        batch_rows, data_group,
-                    )
-                if tele:
-                    _device_span("train", t0, device, {"steps": e - s, "pop": model.pop, "fold": f})
-            t0 = time.monotonic()
-            vi = torch.as_tensor(val_idx[f], device=device)
-            vw = torch.as_tensor(val_weight[f], device=device)
-            accs.append(_eval_fold(model, masks, x_full, y_full, vi, vw, eval_batch_size, mesh))
-            if tele:
-                _device_span("eval", t0, device, {"pop": model.pop, "fold": f})
+                phases = dict.fromkeys(_PHASES, 0.0) if tele else None
+                with _device_span("train", device,
+                                  {"steps": e - s, "pop": model.pop, "fold": f}) as sp:
+                    for t in range(s, e):
+                        _train_step(
+                            model, masks, x_full, y_full, bidx[t], gens, momentum_bufs,
+                            lr_at(t), cfg["momentum"], cfg["nesterov"], microbatch,
+                            batch_rows, data_group, phases,
+                        )
+                    if phases is not None:
+                        sp.set(**{f"{k}_s": v for k, v in phases.items()})
+            with _device_span("eval", device, {"pop": model.pop, "fold": f}):
+                vi = torch.as_tensor(val_idx[f], device=device)
+                vw = torch.as_tensor(val_weight[f], device=device)
+                accs.append(_eval_fold(model, masks, x_full, y_full, vi, vw, eval_batch_size,
+                                       mesh))
         if f == 0 and warm_keys is not None:
             _warm_bank_deposit(model, warm_keys)
-    out = torch.stack(accs).cpu()
-    if mesh is not None:
-        return multihost.fetch(out, ranks=mesh.row_leaders, dim=1).astype(np.float32)
-    return out.numpy().astype(np.float32)
+    with _tele.span("fetch"):
+        out = torch.stack(accs).cpu()
+        if mesh is not None:
+            return multihost.fetch(out, ranks=mesh.row_leaders, dim=1).astype(np.float32)
+        return out.numpy().astype(np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -1360,40 +1415,49 @@ class GeneticCnnModel(GentunModel):
         genomes: Sequence[Mapping[str, Any]],
         **config,
     ) -> np.ndarray:
-        cfg = _normalize_config(x_train, y_train, config)
-        x, y = _prepare_data(x_train, y_train, cfg)
-        if len(genomes) == 0:
-            return np.zeros((0,), dtype=np.float32)
-        device, mesh, genomes, n_real, masks, model, hashes = _prepare_population_setup(
-            cfg, genomes)
+        """One program's CV call; with telemetry on, a ``cv_call`` span
+        (``pop``, ``n_real``, ``kfold``) over its ``setup``, ``init_draw``
+        and ``upload`` spans and ``_run_segmented``'s."""
+        with _tele.span("cv_call") as call:
+            with _tele.span("setup"):
+                cfg = _normalize_config(x_train, y_train, config)
+                x, y = _prepare_data(x_train, y_train, cfg)
+                if len(genomes) == 0:
+                    return np.zeros((0,), dtype=np.float32)
+                device, mesh, genomes, n_real, masks, model, hashes = _prepare_population_setup(
+                    cfg, genomes)
 
-        kfold = cfg["kfold"]
-        perm, batch_idx, val_idx, val_weight, steps_per_epoch, eval_bs = _cv_indices(
-            cfg, x.shape[0])
-        _account_sharded_batch(cfg, mesh, batch_idx.shape[2], batch_idx.shape[1] * kfold)
+                kfold = cfg["kfold"]
+                perm, batch_idx, val_idx, val_weight, steps_per_epoch, eval_bs = _cv_indices(
+                    cfg, x.shape[0])
+                _account_sharded_batch(cfg, mesh, batch_idx.shape[2], batch_idx.shape[1] * kfold)
 
-        masks, local, batch_idx, batch_rows = _local_share(
-            mesh, masks, hashes, batch_idx, cfg["microbatch"], device)
-        params = _init_population_params(model, kfold, cfg["seed"], local)
-        _record_cost_calibration(cfg, params, kfold * len(local), device)
-        x_dev, y_dev = _device_dataset(x_train, y_train, x, y, perm, cfg, device)
-        # Parent→child weight inheritance (multi-fidelity ladder): overlay
-        # each real slot's own lower-rung trained params where shapes match,
-        # and bank fold 0's results for the next rung.  Off with
-        # fold_parallel, as in the reference, whose fused executor has no
-        # per-fold boundary, and on a mesh, where the bank is per process
-        # (a cold start is always correct).
-        warm = cfg["warm_start"] and not cfg["fold_parallel"] and mesh is None
-        warm_keys = hashes[:n_real] if warm else None
-        if warm_keys is not None:
-            _, warmed = _warm_start_overlay(params, warm_keys)
-            if warmed:
-                logger.debug("warm start: %d/%d slots inherited banked params", warmed, n_real)
-        return _run_segmented(
-            cfg, model, masks, params, local, x_dev, y_dev, val_idx, val_weight,
-            batch_idx, steps_per_epoch, eval_bs, warm_keys=warm_keys, mesh=mesh,
-            batch_rows=batch_rows,
-        ).mean(axis=0)[:n_real]
+                masks, local, batch_idx, batch_rows = _local_share(
+                    mesh, masks, hashes, batch_idx, cfg["microbatch"], device)
+            call.set(pop=len(genomes), n_real=n_real, kfold=kfold)
+            with _tele.span("init_draw"):
+                params = _init_population_params(model, kfold, cfg["seed"], local)
+            _record_cost_calibration(cfg, params, kfold * len(local), device)
+            with _tele.span("upload"):
+                x_dev, y_dev = _device_dataset(x_train, y_train, x, y, perm, cfg, device)
+            # Parent→child weight inheritance (multi-fidelity ladder): overlay
+            # each real slot's own lower-rung trained params where shapes match,
+            # and bank fold 0's results for the next rung.  Off with
+            # fold_parallel, as in the reference, whose fused executor has no
+            # per-fold boundary, and on a mesh, where the bank is per process
+            # (a cold start is always correct).
+            warm = cfg["warm_start"] and not cfg["fold_parallel"] and mesh is None
+            warm_keys = hashes[:n_real] if warm else None
+            if warm_keys is not None:
+                _, warmed = _warm_start_overlay(params, warm_keys)
+                if warmed:
+                    logger.debug("warm start: %d/%d slots inherited banked params", warmed,
+                                 n_real)
+            return _run_segmented(
+                cfg, model, masks, params, local, x_dev, y_dev, val_idx, val_weight,
+                batch_idx, steps_per_epoch, eval_bs, warm_keys=warm_keys, mesh=mesh,
+                batch_rows=batch_rows,
+            ).mean(axis=0)[:n_real]
 
     # -- final holdout evaluation (not part of the reference's API) --------
 

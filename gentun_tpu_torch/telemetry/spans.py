@@ -20,6 +20,14 @@ frame) if one is installed in the current context, else the process-wide
 run sink (``export.RunTelemetry``).  Span durations are additionally
 observed into the ``span_seconds{kind=...}`` histogram of the global
 metrics registry.
+
+Profiler ranges: a tracing module may install a range hook
+(:func:`set_range_hook`, ``utils/profiling.py`` does so for
+``torch.profiler``).  While spans are enabled, each span opens
+``hook(kind)``, when it returns a context manager, just after its clocks
+start and closes it just before they stop, so the span shows in a profile
+as a range of its own, inside the span's times.  This module itself
+imports no torch.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ __all__ = [
     "has_run_sink",
     "set_flight_sink",
     "has_flight_sink",
+    "set_range_hook",
 ]
 
 # Module-level switch.  A plain bool read is the entire disabled-path cost
@@ -73,6 +82,10 @@ _sink_lock = threading.Lock()
 # EVERY record regardless of capture/run-sink routing — the black box
 # must see worker-side captured spans too.  One attribute load when off.
 _flight_sink = None
+
+# ``kind -> context manager or None``: the profiler range a span opens
+# (set_range_hook).  One attribute load a span when none is installed.
+_range_hook = None
 
 
 def enabled() -> bool:
@@ -113,6 +126,14 @@ def set_flight_sink(sink) -> None:
     global _flight_sink
     with _sink_lock:
         _flight_sink = sink
+
+
+def set_range_hook(hook) -> None:
+    """Install (or clear, with None) the hook an enabled span calls with its
+    kind on entry; a context manager it returns is entered there and exited
+    when the span ends."""
+    global _range_hook
+    _range_hook = hook
 
 
 def _new_id() -> str:
@@ -176,7 +197,7 @@ _NOOP = _NoopSpan()
 
 class _Span:
     __slots__ = ("kind", "attrs", "trace_id", "span_id", "parent_id",
-                 "_token", "_t0", "_wall0")
+                 "_token", "_t0", "_wall0", "_range")
 
     def __init__(self, kind: str, attrs: Optional[Dict[str, Any]]):
         self.kind = kind
@@ -191,6 +212,7 @@ class _Span:
         self._token = None
         self._t0 = 0.0
         self._wall0 = 0.0
+        self._range = None
 
     def set(self, **attrs: Any) -> None:
         """Attach attributes after entry (e.g. a result count)."""
@@ -200,9 +222,16 @@ class _Span:
         self._token = _CTX.set((self.trace_id, self.span_id))
         self._wall0 = time.time()
         self._t0 = time.monotonic()
+        hook = _range_hook
+        if hook is not None:
+            self._range = hook(self.kind)
+            if self._range is not None:
+                self._range.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         dur = time.monotonic() - self._t0
         _CTX.reset(self._token)
         rec = {

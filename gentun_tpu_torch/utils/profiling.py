@@ -8,7 +8,12 @@ The counterpart of the JAX package's ``utils/profiling.py``:
 - :class:`EvalTimer`: per-evaluation wall and throughput records, the
   source of the north-star metric (individuals/hour/card) at finer grain
   than the per-generation log.  Each ``measure()`` block also emits an
-  ``eval_timer`` span into the active telemetry run (when tracing is on).
+  ``eval_timer`` span into the active telemetry run (when tracing is on);
+- :func:`profiler_range`: a ``gentun.<kind>`` ``record_function`` range
+  while a ``torch.profiler`` runs, else None.  Importing this module
+  installs it as the span system's range hook (``telemetry/spans.py``),
+  so every enabled span shows in a profile as a range of its name, on the
+  same Unix-epoch clock as the span's ``t_wall``.
 """
 
 from __future__ import annotations
@@ -20,9 +25,11 @@ import os
 import time
 from typing import Any, Dict, List
 
+import torch
+
 from ..telemetry import spans as _tele
 
-__all__ = ["trace", "EvalTimer"]
+__all__ = ["trace", "EvalTimer", "profiler_range"]
 
 logger = logging.getLogger("gentun_tpu_torch")
 
@@ -39,7 +46,6 @@ def trace(logdir: str, enabled: bool = True):
     if not enabled:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -51,6 +57,17 @@ def trace(logdir: str, enabled: bool = True):
     path = os.path.join(logdir, f"trace-{os.getpid()}-{time.time_ns()}.json")
     prof.export_chrome_trace(path)
     logger.info("profiler trace written to %s", path)
+
+
+def profiler_range(kind: str):
+    """The ``gentun.<kind>`` range of a span or a train-step phase while a
+    profiler runs; None otherwise, so nothing is opened outside a profile."""
+    if not torch._C._autograd._profiler_enabled():  # this thread's profiler state
+        return None
+    return torch.profiler.record_function("gentun." + kind)
+
+
+_tele.set_range_hook(profiler_range)
 
 
 class EvalTimer:
