@@ -1265,6 +1265,9 @@ def phase_main(torch, x, y, genomes):
         f"({100 * result['bf16_peak_share']:.2f}% of the 989 TFLOP/s bf16 peak)")
     log(f"[3] spans on (device synchronised per span): train {train_s:.3f} s, "
         f"eval {eval_s:.3f} s, call {traced:.3f} s")
+    result["graph"] = graph_counts(recs)
+    log(f"[3] the train step's CUDA graph in that call (captures, fallbacks, replayed steps of "
+        f"all): {result['graph']}; memory reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB")
     return (warm_accs, accs), result
 
 
@@ -2176,6 +2179,14 @@ def span_times(recs, eval_bs: int, n_val: int):
     return step_ms, eval_ms
 
 
+def graph_counts(recs):
+    """The train step's CUDA graph in a phase, from the ``train`` spans:
+    captures that took, captures that raised and replays, of all steps."""
+    train = [r["attrs"] for r in recs if r.get("kind") == "train"]
+    return {k: sum(a.get(k, 0) for a in train)
+            for k in ("captures", "fallbacks", "graph_steps", "steps")}
+
+
 def phase_deep(torch, workdir: str):
     """BASELINE config #5 through the port's GA entry point at full width
     (see the module docstring, phase D).  Returns the result, the GA's
@@ -2207,6 +2218,7 @@ def phase_deep(torch, workdir: str):
     programs, peaks, counter, timer = [], [], conv_counter(), EvalTimer()
     undo = spy_programs(programs, peaks)
     get_registry().reset()
+    reserved0 = torch.cuda.memory_reserved()
     spans.enable()
     try:
         # The GA and its resume under the dispatch mode that counts library
@@ -2232,6 +2244,7 @@ def phase_deep(torch, workdir: str):
             again50 = GeneticCnnModel.cross_validate_population(x, y, genes, **DEEP)
             torch.cuda.synchronize()
             call_s = time.monotonic() - t0
+        reserved1 = torch.cuda.memory_reserved()
     finally:
         spans.disable()
         undo()
@@ -2272,6 +2285,9 @@ def phase_deep(torch, workdir: str):
         "library_convs": counter.convs,
         "launches": launches,
         "calibration": gauges,
+        "ga_graph": graph_counts(ga_recs),
+        "call_graph": graph_counts(recs),
+        "reserved_bytes": (reserved0, reserved1, torch.cuda.max_memory_reserved()),
     }
     log(f"[D] GA 1 generation, pop {DEEP_POP}, S={DEEP_NODES}, filters {DEEP_FILTERS}: "
         f"{result['ga_wall_s']:.3f} s in {first_programs} programs (library-conv counter on), "
@@ -2279,6 +2295,10 @@ def phase_deep(torch, workdir: str):
         f"peak memory {max(peaks) / 2**30:.2f} GiB; learned pop cap {cap} "
         f"({'a CUDA OOM split the population' if cap else 'no CUDA OOM'})")
     log(f"[D] kernel launches in the GA: {launches}")
+    log(f"[D] the train step's CUDA graph (captures, fallbacks, replayed steps of all): GA and "
+        f"resume {result['ga_graph']}, timed call {result['call_graph']}; memory reserved "
+        f"{reserved0 / 2**30:.2f} GiB before the GA, {reserved1 / 2**30:.2f} GiB after the timed "
+        f"call, at most {result['reserved_bytes'][2] / 2**30:.2f} GiB")
     log(f"[D] timed pop-{DEEP_POP} call, cap known, counter off: {call_s:.3f} s "
         f"({result['call_individuals_per_hour']:.1f} individuals/hour), peak memory "
         f"{timed_peak / 2**30:.2f} GiB")
@@ -2320,6 +2340,7 @@ def phase_budget(torch, x, y, pair):
     from gentun_tpu_torch.models import cnn
     from gentun_tpu_torch.models.cnn import GeneticCnnModel
     from gentun_tpu_torch.parallel.mesh import cnn_genome_cost
+    from gentun_tpu_torch.telemetry import spans
     from gentun_tpu_torch.telemetry.registry import get_registry
 
     cost = cnn_genome_cost(DEEP_NODES, DEEP_FILTERS, (32, 32, 3), DEEP_DENSE, DEEP_CLASSES,
@@ -2333,20 +2354,31 @@ def phase_budget(torch, x, y, pair):
     steps0 = reg.counter("microbatch_steps_total").value
     programs = []
     undo = spy_programs(programs)
+    reserved0 = torch.cuda.memory_reserved()
+    spans.enable()
     try:
-        t0 = time.monotonic()
-        routed = GeneticCnnModel.cross_validate_population(x, y, pair, **DEEP, device_budget=budget)
-        routed_s = time.monotonic() - t0
+        with spans.capture() as recs:
+            t0 = time.monotonic()
+            routed = GeneticCnnModel.cross_validate_population(x, y, pair, **DEEP,
+                                                               device_budget=budget)
+            routed_s = time.monotonic() - t0
         alone = np.concatenate([
             GeneticCnnModel.cross_validate_population(x, y, [g], **DEEP, device_budget=budget)
             for g in pair])
     finally:
+        spans.disable()
         undo()
+    graph, reserved1 = graph_counts(recs), torch.cuda.memory_reserved()
+    fold = DEEP_N // DEEP["kfold"]
+    step_ms, _ = span_times(recs, *cnn._eval_batch_size(DEEP["batch_size"], fold))
     shapes = [(len(g), c.get("pop_padding"), c.get("microbatch")) for g, c, _s, _o in programs]
     steps = reg.counter("microbatch_steps_total").value - steps0
     witness = float(np.abs(routed - alone).max())
     log(f"[B] 2 genomes routed ({routed_s:.3f} s): programs (genomes, pop_padding, microbatch) "
         f"{shapes}; fitnesses {np.round(routed, 4).tolist()}; microbatch passes counted {steps:g}")
+    log(f"[B] the train step's CUDA graph in the routed call (captures, fallbacks, replayed "
+        f"steps of all): {graph}; train step {step_ms} ms by width (spans, synchronised); memory "
+        f"reserved {reserved0 / 2**30:.2f} GiB before, {reserved1 / 2**30:.2f} GiB after")
     log(f"[B] purity: each alone vs routed beside the other: max|Δfitness| = {witness}")
     check(shapes == [(1, False, 2)] * 4, f"micro route: one genome per program: {shapes}")
     check(bool(np.isfinite(routed).all()), "finite micro-route fitnesses")
@@ -2360,7 +2392,8 @@ def phase_budget(torch, x, y, pair):
     else:
         check(False, "a budget of param_bytes raises ValueError")
     return {"budget": budget, "programs": shapes, "fitness": routed.tolist(),
-            "microbatch_passes": steps, "purity_max_abs_diff": witness, "wall_s": routed_s}
+            "microbatch_passes": steps, "purity_max_abs_diff": witness, "wall_s": routed_s,
+            "graph": graph, "step_ms_by_width": step_ms, "reserved_bytes": (reserved0, reserved1)}
 
 
 #: Phase M: the (pop, data) mesh over ranks and the multi-host worker.

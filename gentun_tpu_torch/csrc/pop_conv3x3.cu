@@ -73,6 +73,10 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -85,6 +89,25 @@ struct XAddr {
   long long bstride;  // between images
   __device__ __forceinline__ long long slot_base(int s) const { return (long long)s * sstride; }
 };
+
+// A kernel's limit on dynamic shared memory is the function's, on the
+// current device, shared by every host thread that launches it.  Were it set
+// to each launch's own size, a launch at a smaller shape on one thread could
+// lower it between another thread's set and launch, whose launch then fails
+// (too many resources requested).  So it only ever rises.
+int raise_smem_limit(const void* kernel, int smem) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, int> limits;
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  int& limit = limits[std::make_pair(dev, kernel)];
+  if (smem <= limit) return 0;
+  err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (!err) limit = smem;
+  return err;
+}
 
 template <typename T> struct AccOf { typedef float type; };
 template <> struct AccOf<double> { typedef double type; };
@@ -517,7 +540,7 @@ int launch(const bf16* x, const bf16* w, const bf16* bias, bf16* y, int S, int B
   const int smem = halo_smem > out_smem ? halo_smem : out_smem;
   const bool vec = g.tw == W && W % 8 == 0 && ((uintptr_t)x & 15) == 0 && ((uintptr_t)y & 15) == 0;
   auto kernel = vec ? fwd_bf16_kernel<K, true> : fwd_bf16_kernel<K, false>;
-  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int err = raise_smem_limit((const void*)kernel, smem);
   if (err) return err;
   kernel<<<dim3((unsigned)blocks, 1, S), NT, smem, st>>>(x, w, bias, y, S, B, C, F, H, W, xa, g);
   return (int)cudaGetLastError();
@@ -1054,7 +1077,7 @@ int launch(const bf16* x, const bf16* dy, float* part, float* dbpart, bf16* dw, 
   const int smem = loop_smem > K::RED_BYTES ? loop_smem : K::RED_BYTES;
   const bool vec = g.tw == W && W % 8 == 0 && ((uintptr_t)x & 15) == 0 && ((uintptr_t)dy & 15) == 0;
   auto kernel = vec ? wgrad_bf16_kernel<K, true> : wgrad_bf16_kernel<K, false>;
-  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int err = raise_smem_limit((const void*)kernel, smem);
   if (err) return err;
   kernel<<<dim3((unsigned)blocks, 1, S), NT, smem, st>>>(x, dy, part, dbpart, S, B, C, F, H, W,
                                                            splits, ips, xa, g);

@@ -28,7 +28,9 @@ fitness = mean validation accuracy.  How it runs differs:
 - **The executor is a host loop.**  Folds and steps are a Python loop over
   device-resident carries (params, momentum, per-genome dropout generators);
   the dataset uploads once and is cached across evaluations.  Nothing is
-  compiled: PyTorch runs eagerly.
+  compiled: PyTorch runs eagerly, but on one card a call captures its train
+  step once as a CUDA graph and replays it for every later step, so the
+  host does not pace the kernels (``_StepGraph``).
 - **Fitness is a pure function of (genome, config, seed).**  Init is drawn
   on the CPU from one generator per (fold, genome) seeded from the genome's
   content hash, then moved to the device, so a CPU run and a CUDA run start
@@ -78,6 +80,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import _build
 from ..ops.dag import stack_genome_masks
 from ..ops.pop_dag import pop_stage, stage_masks
 from ..parallel import multihost
@@ -386,7 +389,7 @@ def _train_step(
     idx: torch.Tensor,
     gens: Optional[Sequence[torch.Generator]],
     momentum_bufs: List[torch.Tensor],
-    lr: float,
+    lr,
     momentum: float,
     nesterov: bool,
     microbatch: int = 1,
@@ -400,8 +403,11 @@ def _train_step(
     genome's params get exactly their own gradient.  ``microbatch > 1``
     splits the batch and averages the slices' gradients before the one
     update (dropout then draws per slice).  Momentum: ``t = g + m·t``; the
-    update is ``t`` (or ``g + m·t`` with nesterov), scaled by ``-lr`` and
-    added to the param.  Params and momentum buffers update in place.
+    update is ``t`` (or ``g + m·t`` with nesterov), scaled by ``lr`` and
+    taken from the param.  Params and momentum buffers update in place.
+    ``lr`` is a float or a 0-dim float32 tensor (the executor's, on the
+    device, which a graph of the step reads at each replay): ``p − u·lr`` is
+    the same bits either way, and the same as ``p + u·(−lr)``.
 
     On a data axis ``idx`` holds this rank's rows ``batch_rows = (lo, hi,
     n)`` of each micro-slice of ``n``: each loss is divided by ``n``, and the
@@ -437,7 +443,7 @@ def _train_step(
                     g = g / microbatch
                 t.mul_(momentum).add_(g)
                 update = g + momentum * t if nesterov else t
-                p.add_(update * -lr)
+                p.sub_(update * lr)
 
 
 @torch.no_grad()
@@ -539,17 +545,19 @@ def exact_numerics():
 def _device_span(kind: str, device: torch.device, attrs: Dict[str, Any]):
     """A telemetry span around device work, with the name of the thread that
     ran the work (evaluations may run on several): it opens (with its
-    profiler range) on entry and, before it closes, waits for the device.
-    The wait is for the whole device: a span of one thread also covers work
-    that another thread queued on the shared stream before it.  With
-    telemetry off it is the no-op span and nothing waits."""
+    profiler range) on entry and, before it closes, waits for the thread's
+    current stream.  That is the default stream, which the threads share,
+    so a span of one thread also covers work that another thread queued
+    there before it; the whole device is not waited for, which CUDA forbids
+    while another thread captures a graph.  With telemetry off it is the
+    no-op span and nothing waits."""
     if not _tele.enabled():
         yield _tele.span(kind)
         return
     with _tele.span(kind, {**attrs, "thread": threading.current_thread().name}) as sp:
         yield sp
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            torch.cuda.current_stream(device).synchronize()
 
 
 def _check_initial_params(
@@ -565,6 +573,178 @@ def _check_initial_params(
             raise ValueError(
                 f"initial param {name!r} has shape {tuple(leaf.shape)} {leaf.dtype}; "
                 f"the model needs ({kfold}, *{tuple(p.shape)}) {p.dtype}")
+
+
+# ---------------------------------------------------------------------------
+# The train step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+#: Fewest train steps (over all folds) a call needs for its step to run as
+#: a CUDA graph: the first runs eagerly as the capture's warm-up, and the
+#: capture is then replayed for every later step, at least twice.
+_GRAPH_MIN_STEPS = 3
+
+
+def _graph_eligible(device: torch.device, mesh: Optional[Mesh], steps: int) -> bool:
+    """Does a call of ``steps`` train steps replay its step as a CUDA graph?
+    On a CUDA device, off a mesh (whose ranks all-reduce every step), with
+    at least ``_GRAPH_MIN_STEPS`` steps; everything else steps eagerly."""
+    return device.type == "cuda" and mesh is None and steps >= _GRAPH_MIN_STEPS
+
+
+#: The programs, by (``_oom_cap_key``, pop), whose capture raised once: their
+#: later calls step eagerly without trying again.
+_NO_GRAPH: set = set()
+#: Captures under way in the process: ``_empty_cache`` waits for none.
+_CAPTURE_LOCK = threading.Lock()
+_captures_underway = 0
+
+
+class _ThreadGraphs:
+    """An evaluating thread's capture stream on one device, and the graph it
+    captured last there.
+
+    The stream is kept because the eager steps run on it make its cuBLAS
+    workspace outside any graph's pool: one made inside a capture stays
+    allocated in that pool, so a new stream a call pins one pool a call
+    (on an H100, config #2 at pop 20: +64 MiB allocated and +2.05 GiB
+    reserved a call).  The last graph, never replayed again, is kept for
+    its pool, which the thread's next capture shares: a dead graph's pool
+    stays reserved until the allocator's cache is emptied, so a pool a call
+    piles up (+1.98 GiB a call), and emptying the cache after every call
+    costs more than the graph saves (87-517 ms a call).
+    :func:`_release_step_graphs` drops every thread's last graph.
+    """
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.last: Optional[torch.cuda.CUDAGraph] = None
+
+
+_THREAD_GRAPHS = threading.local()
+#: Every thread's ``_ThreadGraphs``, for :func:`_release_step_graphs`; a
+#: thread's go when it ends.
+_ALL_THREAD_GRAPHS: "weakref.WeakSet[_ThreadGraphs]" = weakref.WeakSet()
+
+
+def _thread_graphs(device: torch.device) -> _ThreadGraphs:
+    mine = _THREAD_GRAPHS.__dict__.setdefault("by_device", {})
+    if device.index not in mine:
+        mine[device.index] = _ThreadGraphs(device)
+        with _CAPTURE_LOCK:
+            _ALL_THREAD_GRAPHS.add(mine[device.index])
+    return mine[device.index]
+
+
+def _release_step_graphs() -> bool:
+    """Drop every thread's last graph, so that the next ``_empty_cache``
+    frees its pool; True if there was one."""
+    with _CAPTURE_LOCK:
+        held = [t for t in _ALL_THREAD_GRAPHS if t.last is not None]
+        for t in held:
+            t.last = None
+    return bool(held)
+
+
+def _empty_cache() -> None:
+    """``torch.cuda.empty_cache``, unless a train step is being captured on
+    another thread: the caching allocator may not empty its cache then."""
+    with _CAPTURE_LOCK:
+        if not _captures_underway:
+            torch.cuda.empty_cache()
+
+
+class _StepGraph:
+    """A CV call's train step as one CUDA graph: captured once, after the
+    call's first step, and replayed for every later step of every fold.
+
+    What changes from step to step reaches the graph through two static
+    device buffers that :meth:`replay` fills before each launch: ``idx``,
+    the batch's rows, and ``lr``, a 0-dim float32.  All else lives as long
+    as the call and changes in place: the params (each fold copies its own
+    in), the momentum buffers (zeroed in place), the dataset and the masks,
+    and the per-genome dropout generators, which are registered with the
+    graph, so a replay draws from each one's state at that moment and moves
+    it on as the eager step does (each fold re-seeds them in place).  The
+    graph is the call's; its memory pool is the thread's (``_ThreadGraphs``).
+    """
+
+    def __init__(self, device: torch.device, batch: int, key: Tuple):
+        self.key = key
+        self.mine = _thread_graphs(device)
+        self.failed = False
+        self.idx = torch.empty(batch, dtype=torch.int64, device=device)
+        self.lr = torch.empty((), dtype=torch.float32, device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: Dict[str, int] = {}
+
+    def first_step(self, step: Callable, idx: torch.Tensor, lr: torch.Tensor,
+                   phases: Optional[Dict[str, float]],
+                   gens: Optional[List[torch.Generator]]) -> bool:
+        """Run ``step(idx, lr, phases)`` eagerly on the thread's capture
+        stream, then capture ``step(self.idx, self.lr, None)`` there; True
+        if the capture took, else (``failed``) the caller steps on eagerly."""
+        stream = self.mine.stream
+        current = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(current)
+        try:
+            with torch.cuda.stream(stream):
+                step(idx, lr, phases)
+                self.failed = not self._capture(step, gens)
+        finally:
+            current.wait_stream(stream)
+        if self.failed:
+            _empty_cache()  # the failed capture's pool
+        return not self.failed
+
+    def _capture(self, step: Callable, gens: Optional[List[torch.Generator]]) -> bool:
+        """A capture that raises (an op a graph cannot hold, a CUDA OOM)
+        drops the graph and the thread's pool, puts the program in
+        ``_NO_GRAPH``, logs and returns False.  The generators are then new
+        ones in the state the capture found: a failed capture can leave a
+        registered state marked as capturing."""
+        global _captures_underway
+        states = [g.get_state() for g in gens or ()]
+        graph, last = torch.cuda.CUDAGraph(), self.mine.last
+        with _CAPTURE_LOCK:
+            _captures_underway += 1
+        try:
+            for g in gens or ():
+                graph.register_generator_state(g)
+            with _build.recording_launches() as launches:
+                graph.capture_begin(pool=None if last is None else last.pool(),
+                                    capture_error_mode="thread_local")
+                try:
+                    step(self.idx, self.lr, None)
+                finally:
+                    graph.capture_end()
+        except Exception as err:  # noqa: BLE001 - any failure steps on eagerly
+            self.mine.last = None
+            if gens:
+                gens[:] = [_generator_in_state(g.device, st) for g, st in zip(gens, states)]
+            _NO_GRAPH.add(self.key)
+            logger.warning("the train step's CUDA graph capture failed (%s: %s); this "
+                           "program steps eagerly from now on", type(err).__name__, err)
+            return False
+        finally:
+            with _CAPTURE_LOCK:
+                _captures_underway -= 1
+        self.graph, self.launches, self.mine.last = graph, launches, graph
+        return True
+
+    def replay(self, idx: torch.Tensor, lr: torch.Tensor) -> None:
+        """One step: the batch's rows and the learning rate into the static
+        buffers, then the graph, on the current stream."""
+        self.idx.copy_(idx)
+        self.lr.copy_(lr)
+        self.graph.replay()
+        _build.add_launches(self.launches)
+
+
+def _generator_in_state(device: torch.device, state: torch.Tensor) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.set_state(state)
+    return g
 
 
 def _run_segmented(
@@ -589,12 +769,18 @@ def _run_segmented(
 
     Per fold: load that fold's initial params into ``model``, zero the
     momentum, seed the per-genome dropout generators (of stream domain
-    ``domain``), run the schedule's steps, then the weighted eval.  With
-    telemetry on, the fold's preamble is a ``fold_load`` span, each segment
-    a ``train`` span carrying its steps' phase seconds (``forward_s``,
-    ``backward_s``, ``update_s``), each eval an ``eval`` span, and the
-    final gather a ``fetch`` span.  Each
-    fold's accuracies stay on the device until every fold is queued.  With
+    ``domain``), all in place, run the schedule's steps, then the weighted
+    eval.  The learning rate of each step is a 0-dim tensor of a per-call
+    table on the device.  Where ``_graph_eligible`` says so, the call's
+    first step runs eagerly and every later step of every fold is a replay
+    of one CUDA graph of the step (:class:`_StepGraph`).  With telemetry on,
+    the fold's preamble is a ``fold_load`` span, each segment a ``train``
+    span carrying its eager steps' phase seconds (``forward_s``,
+    ``backward_s``, ``update_s``), its replays' (``replay_s``), the steps
+    it replayed (``graph_steps``), the captures it made (``captures``) and
+    those that raised (``fallbacks``), each eval an ``eval`` span, and the
+    final gather a ``fetch`` span.  Each fold's accuracies stay on the
+    device until every fold is queued.  With
     ``warm_keys`` (the real genomes' hashes) fold 0's trained params go into
     the warm-start bank.
 
@@ -606,35 +792,59 @@ def _run_segmented(
     device = x_full.device
     kfold, total_steps = batch_idx.shape[0], batch_idx.shape[1]
     lr_at = _lr_schedule(cfg["epochs"], cfg["learning_rate"], steps_per_epoch)
+    lr_table = torch.tensor([lr_at(t) for t in range(total_steps)], dtype=torch.float32,
+                            device=device)
     bounds = _segment_bounds(total_steps, cfg["segment_steps"])
     microbatch = int(cfg["microbatch"])
-    dropout = cfg["dropout_rate"] > 0.0
     data_group = None if mesh is None else mesh.data_group
     tele = _tele.enabled()
     named = dict(model.named_parameters())
     _check_initial_params(named, params, kfold)
+    momentum_bufs = [torch.empty_like(p) for p in named.values()]
+    gens = ([torch.Generator(device=device) for _ in hashes]
+            if cfg["dropout_rate"] > 0.0 else None)
+    graph = None
+    if _graph_eligible(device, mesh, kfold * total_steps):
+        key = (_oom_cap_key(cfg), model.pop)
+        graph = None if key in _NO_GRAPH else _StepGraph(device, batch_idx.shape[2], key)
+
+    def step(idx, lr, phases):
+        # _train_step is looked up at each call: the capture takes whatever
+        # step the module holds then.
+        _train_step(model, masks, x_full, y_full, idx, gens, momentum_bufs, lr,
+                    cfg["momentum"], cfg["nesterov"], microbatch, batch_rows, data_group, phases)
+
     accs = []
     for f in range(kfold):
         with _tele.span("fold_load", {"fold": f}):
             with torch.no_grad():
                 for name, p in named.items():
                     p.copy_(params[name][f])
-            momentum_bufs = [torch.zeros_like(p) for p in named.values()]
-            gens = _dropout_generators(cfg["seed"], f, hashes, device, domain) if dropout else None
+                for t in momentum_bufs:
+                    t.zero_()
+            if gens is not None:
+                _seed_dropout_generators(gens, cfg["seed"], f, hashes, domain)
             bidx = torch.as_tensor(batch_idx[f], device=device)
         with exact_numerics():
             for s, e in bounds:
-                phases = dict.fromkeys(_PHASES, 0.0) if tele else None
+                phases = dict.fromkeys((*_PHASES, "replay"), 0.0) if tele else None
+                graph_steps = captures = fallbacks = 0
                 with _device_span("train", device,
                                   {"steps": e - s, "pop": model.pop, "fold": f}) as sp:
                     for t in range(s, e):
-                        _train_step(
-                            model, masks, x_full, y_full, bidx[t], gens, momentum_bufs,
-                            lr_at(t), cfg["momentum"], cfg["nesterov"], microbatch,
-                            batch_rows, data_group, phases,
-                        )
+                        if graph is None or graph.failed:
+                            step(bidx[t], lr_table[t], phases)
+                        elif graph.graph is not None:
+                            with _phase(phases, "replay"):
+                                graph.replay(bidx[t], lr_table[t])
+                            graph_steps += 1
+                        elif graph.first_step(step, bidx[t], lr_table[t], phases, gens):
+                            captures += 1
+                        else:
+                            fallbacks += 1
                     if phases is not None:
-                        sp.set(**{f"{k}_s": v for k, v in phases.items()})
+                        sp.set(**{f"{k}_s": v for k, v in phases.items()},
+                               graph_steps=graph_steps, captures=captures, fallbacks=fallbacks)
             with _device_span("eval", device, {"pop": model.pop, "fold": f}):
                 vi = torch.as_tensor(val_idx[f], device=device)
                 vw = torch.as_tensor(val_weight[f], device=device)
@@ -704,17 +914,23 @@ def _stream_seed(*words: int) -> int:
     return h
 
 
+def _seed_dropout_generators(
+    gens: Sequence[torch.Generator], seed: int, fold: int, hashes: np.ndarray, domain: int = 0
+) -> None:
+    """Seed one generator per genome slot, in place, from (seed, fold, hash),
+    or from (seed, domain, fold, hash) for a separate stream domain."""
+    head = (seed,) if not domain else (seed, domain)
+    for g, (hi, lo) in zip(gens, hashes):
+        g.manual_seed(_stream_seed(*head, fold, hi, lo))
+
+
 def _dropout_generators(
     seed: int, fold: int, hashes: np.ndarray, device: torch.device, domain: int = 0
 ) -> List[torch.Generator]:
-    """One device generator per genome slot, seeded from (seed, fold, hash),
-    or from (seed, domain, fold, hash) for a separate stream domain."""
-    head = (seed,) if not domain else (seed, domain)
-    gens = []
-    for hi, lo in hashes:
-        g = torch.Generator(device=device)
-        g.manual_seed(_stream_seed(*head, fold, hi, lo))
-        gens.append(g)
+    """One device generator per genome slot, seeded as
+    :func:`_seed_dropout_generators` seeds them."""
+    gens = [torch.Generator(device=device) for _ in hashes]
+    _seed_dropout_generators(gens, seed, fold, hashes, domain)
     return gens
 
 
@@ -935,10 +1151,13 @@ def _oom_cap_key(cfg: Dict[str, Any]):
     )
 
 
-def _chunked_by_cap(run, genomes, cap_key, run_exact=None):
+def _chunked_by_cap(run, genomes, cap_key, run_exact=None, release_graphs=True):
     """Run the batched evaluator, splitting the population on device OOM.
 
-    On ``torch.cuda.OutOfMemoryError`` the population is split to a
+    An OOM while some thread holds the pool of its last train-step graph
+    (``_release_step_graphs``) first frees those pools and runs the same
+    population again: the memory they held may be what ran out.  On a
+    further ``torch.cuda.OutOfMemoryError`` the population is split to a
     power-of-two chunk (so chunks reuse the standard bucket shapes) and the
     cap is REMEMBERED for this config, so later generations pre-chunk.  A
     singleton that still does not fit in its padded 2-wide program retries
@@ -954,11 +1173,13 @@ def _chunked_by_cap(run, genomes, cap_key, run_exact=None):
         )
     if cap == 1 and len(genomes) == 1 and run_exact is not None:
         return run_exact(genomes)
-    fallback = None
+    fallback = again = None
     try:
         return run(genomes)
     except torch.cuda.OutOfMemoryError:
-        if len(genomes) <= 1:
+        if release_graphs and _release_step_graphs():
+            again = True
+        elif len(genomes) <= 1:
             if run_exact is None:
                 raise
             _learn_pop_cap(cap_key, 1)
@@ -986,7 +1207,9 @@ def _chunked_by_cap(run, genomes, cap_key, run_exact=None):
     # frees only unused cached blocks), so the cap learned beside them is
     # the conservative one.
     gc.collect()
-    torch.cuda.empty_cache()
+    _empty_cache()
+    if again:
+        return _chunked_by_cap(run, genomes, cap_key, run_exact, release_graphs=False)
     if fallback is not None:
         return fallback(genomes)
     return _chunked_by_cap(run, genomes, cap_key, run_exact)

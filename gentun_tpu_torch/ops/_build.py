@@ -14,6 +14,7 @@ the stream pass as ``c_void_p``.  Importing this module needs neither ``nvcc`` n
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -22,7 +23,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterator, Mapping, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -50,11 +51,49 @@ LAUNCHES: Dict[str, int] = {
 #: Guards the read-modify-write of a count: evaluations on several threads
 #: launch at once, and a bare ``+= 1`` can lose a count between them.
 _launch_lock = threading.Lock()
+#: Launches recorded while a stream is captured into a CUDA graph, by the
+#: stream's handle: a captured launch runs only when the graph replays, and
+#: :func:`add_launches` counts it then.
+_recording: Dict[int, Dict[str, int]] = {}
+
+
+def _current_stream() -> int:
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
 
 
 def count_launch(name: str) -> None:
     with _launch_lock:
-        LAUNCHES[name] += 1
+        counts = _recording.get(_current_stream()) if _recording else None
+        if counts is None:
+            LAUNCHES[name] += 1
+        else:
+            counts[name] = counts.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Dict[str, int]]:
+    """Inside the block, record the launches issued to the current CUDA
+    stream (a graph's capture) instead of counting them; yields the record,
+    launches by wrapper.  Launches on other streams and threads count as
+    before."""
+    stream, counts = _current_stream(), {}
+    with _launch_lock:
+        _recording[stream] = counts
+    try:
+        yield counts
+    finally:
+        with _launch_lock:
+            del _recording[stream]
+
+
+def add_launches(counts: Mapping[str, int]) -> None:
+    """Count launches issued without their wrappers: a graph's replay of
+    what :func:`recording_launches` recorded."""
+    with _launch_lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

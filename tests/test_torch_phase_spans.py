@@ -116,3 +116,18 @@ def test_every_span_is_a_range_on_the_same_clock(data):
     steps = sum(r["attrs"]["steps"] for r in records if r["kind"] == "train")
     assert {p: len(ranges.get(p, [])) for p in ("forward", "backward", "update")} == dict.fromkeys(
         ("forward", "backward", "update"), steps)
+
+
+def test_train_spans_on_the_cpu_replay_nothing(data):
+    """The CPU steps eagerly: every ``train`` span carries ``graph_steps``,
+    ``captures`` and ``fallbacks`` 0 and ``replay_s`` 0, no ``gentun.replay`` range
+    opens, and the phase ranges still count the steps."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, records = _call(data, on=True)
+    trains = [r["attrs"] for r in records if r["kind"] == "train"]
+    assert trains and all(a["graph_steps"] == 0 and a["captures"] == 0 and a["fallbacks"] == 0
+                          and a["replay_s"] == 0.0 for a in trains)
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    steps = sum(a["steps"] for a in trains)
+    assert {p: names.count(f"gentun.{p}") for p in ("forward", "backward", "update", "replay")} \
+        == {"forward": steps, "backward": steps, "update": steps, "replay": 0}
