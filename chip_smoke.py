@@ -1266,8 +1266,9 @@ def phase_main(torch, x, y, genomes):
     log(f"[3] spans on (device synchronised per span): train {train_s:.3f} s, "
         f"eval {eval_s:.3f} s, call {traced:.3f} s")
     result["graph"] = graph_counts(recs)
-    log(f"[3] the train step's CUDA graph in that call (captures, fallbacks, replayed steps of "
-        f"all): {result['graph']}; memory reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    log(f"[3] the train step's CUDA graph in that call (captures, fallbacks, skips, replayed "
+        f"steps of all): {result['graph']}; memory reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
     return (warm_accs, accs), result
 
 
@@ -2181,10 +2182,11 @@ def span_times(recs, eval_bs: int, n_val: int):
 
 def graph_counts(recs):
     """The train step's CUDA graph in a phase, from the ``train`` spans:
-    captures that took, captures that raised and replays, of all steps."""
+    captures that took, captures that raised, captures skipped for want of
+    memory and replays, of all steps."""
     train = [r["attrs"] for r in recs if r.get("kind") == "train"]
     return {k: sum(a.get(k, 0) for a in train)
-            for k in ("captures", "fallbacks", "graph_steps", "steps")}
+            for k in ("captures", "fallbacks", "graph_skips", "graph_steps", "steps")}
 
 
 def phase_deep(torch, workdir: str):
@@ -2295,8 +2297,8 @@ def phase_deep(torch, workdir: str):
         f"peak memory {max(peaks) / 2**30:.2f} GiB; learned pop cap {cap} "
         f"({'a CUDA OOM split the population' if cap else 'no CUDA OOM'})")
     log(f"[D] kernel launches in the GA: {launches}")
-    log(f"[D] the train step's CUDA graph (captures, fallbacks, replayed steps of all): GA and "
-        f"resume {result['ga_graph']}, timed call {result['call_graph']}; memory reserved "
+    log(f"[D] the train step's CUDA graph (captures, fallbacks, skips, replayed steps of all): "
+        f"GA and resume {result['ga_graph']}, timed call {result['call_graph']}; memory reserved "
         f"{reserved0 / 2**30:.2f} GiB before the GA, {reserved1 / 2**30:.2f} GiB after the timed "
         f"call, at most {result['reserved_bytes'][2] / 2**30:.2f} GiB")
     log(f"[D] timed pop-{DEEP_POP} call, cap known, counter off: {call_s:.3f} s "
@@ -2376,9 +2378,10 @@ def phase_budget(torch, x, y, pair):
     witness = float(np.abs(routed - alone).max())
     log(f"[B] 2 genomes routed ({routed_s:.3f} s): programs (genomes, pop_padding, microbatch) "
         f"{shapes}; fitnesses {np.round(routed, 4).tolist()}; microbatch passes counted {steps:g}")
-    log(f"[B] the train step's CUDA graph in the routed call (captures, fallbacks, replayed "
-        f"steps of all): {graph}; train step {step_ms} ms by width (spans, synchronised); memory "
-        f"reserved {reserved0 / 2**30:.2f} GiB before, {reserved1 / 2**30:.2f} GiB after")
+    log(f"[B] the train step's CUDA graph in the routed call (captures, fallbacks, skips, "
+        f"replayed steps of all): {graph}; train step {step_ms} ms by width (spans, "
+        f"synchronised); memory reserved {reserved0 / 2**30:.2f} GiB before, "
+        f"{reserved1 / 2**30:.2f} GiB after")
     log(f"[B] purity: each alone vs routed beside the other: max|Δfitness| = {witness}")
     check(shapes == [(1, False, 2)] * 4, f"micro route: one genome per program: {shapes}")
     check(bool(np.isfinite(routed).all()), "finite micro-route fitnesses")

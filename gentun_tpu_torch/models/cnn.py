@@ -592,6 +592,36 @@ def _graph_eligible(device: torch.device, mesh: Optional[Mesh], steps: int) -> b
     return device.type == "cuda" and mesh is None and steps >= _GRAPH_MIN_STEPS
 
 
+#: A train step's memory over ``cnn_genome_cost``'s activations of one
+#: batch (one live copy per conv output), as measured on an H100 at
+#: config #5, pop 50: the eager step's peak above its parameter state was
+#: 1.99, 1.86 and 1.81 times the activations at batch 64, 128 and 256, and
+#: the graph's pool 2.93 and 2.75 times at batch 64 and 128 (at 256 the
+#: capture ran out of memory).
+_EAGER_BYTES_PER_ACT_BYTE = 2.0
+_POOL_BYTES_PER_ACT_BYTE = 3.0
+
+
+def _graph_fits(cfg: Dict[str, Any], pop: int, batch: int, device: torch.device) -> bool:
+    """Do the eager step's blocks and the graph's memory pool fit together
+    in the memory the device has free or holds unused in the allocator's
+    cache?  The capture draws its pool from neither the cache nor the eager
+    step's blocks, and runs out of memory where the two do not fit (config
+    #5 at pop 50 and batch 256 on an 80 GB card, where the failed capture
+    fills the card and costs its call ≈ 1.2 s).  A later call of the same
+    shapes finds both in the cache, and then the CUDA runtime is not asked
+    for free memory: on an H100 that query holds the host ≈ 2 ms while the
+    device waits."""
+    cost = cnn_genome_cost(cfg["nodes"], cfg["kernels_per_layer"], cfg["input_shape"],
+                           cfg["dense_units"], cfg["n_classes"], cfg["compute_dtype"],
+                           bool(cfg["stage_exit_conv"]))
+    rows = batch // max(1, int(cfg["microbatch"]))
+    need = ((_EAGER_BYTES_PER_ACT_BYTE + _POOL_BYTES_PER_ACT_BYTE)
+            * cost.act_bytes_per_example * rows * pop)
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return need <= cached or need <= cached + torch.cuda.mem_get_info(device)[0]
+
+
 #: The programs, by (``_oom_cap_key``, pop), whose capture raised once: their
 #: later calls step eagerly without trying again.
 _NO_GRAPH: set = set()
@@ -773,12 +803,15 @@ def _run_segmented(
     eval.  The learning rate of each step is a 0-dim tensor of a per-call
     table on the device.  Where ``_graph_eligible`` says so, the call's
     first step runs eagerly and every later step of every fold is a replay
-    of one CUDA graph of the step (:class:`_StepGraph`).  With telemetry on,
+    of one CUDA graph of the step (:class:`_StepGraph`), unless
+    ``_graph_fits`` says the graph's pool would not fit beside the eager
+    step: then the call steps eagerly without trying.  With telemetry on,
     the fold's preamble is a ``fold_load`` span, each segment a ``train``
     span carrying its eager steps' phase seconds (``forward_s``,
     ``backward_s``, ``update_s``), its replays' (``replay_s``), the steps
-    it replayed (``graph_steps``), the captures it made (``captures``) and
-    those that raised (``fallbacks``), each eval an ``eval`` span, and the
+    it replayed (``graph_steps``), the captures it made (``captures``),
+    those that raised (``fallbacks``) and those skipped for want of memory
+    (``graph_skips``), each eval an ``eval`` span, and the
     final gather a ``fetch`` span.  Each fold's accuracies stay on the
     device until every fold is queued.  With
     ``warm_keys`` (the real genomes' hashes) fold 0's trained params go into
@@ -803,10 +836,14 @@ def _run_segmented(
     momentum_bufs = [torch.empty_like(p) for p in named.values()]
     gens = ([torch.Generator(device=device) for _ in hashes]
             if cfg["dropout_rate"] > 0.0 else None)
-    graph = None
+    graph, skips = None, 0
     if _graph_eligible(device, mesh, kfold * total_steps):
         key = (_oom_cap_key(cfg), model.pop)
-        graph = None if key in _NO_GRAPH else _StepGraph(device, batch_idx.shape[2], key)
+        if key not in _NO_GRAPH:
+            if _graph_fits(cfg, model.pop, batch_idx.shape[2], device):
+                graph = _StepGraph(device, batch_idx.shape[2], key)
+            else:
+                skips = 1
 
     def step(idx, lr, phases):
         # _train_step is looked up at each call: the capture takes whatever
@@ -844,7 +881,9 @@ def _run_segmented(
                             fallbacks += 1
                     if phases is not None:
                         sp.set(**{f"{k}_s": v for k, v in phases.items()},
-                               graph_steps=graph_steps, captures=captures, fallbacks=fallbacks)
+                               graph_steps=graph_steps, captures=captures, fallbacks=fallbacks,
+                               graph_skips=skips)
+                skips = 0  # the skip belongs to the call's first segment
             with _device_span("eval", device, {"pop": model.pop, "fold": f}):
                 vi = torch.as_tensor(val_idx[f], device=device)
                 vw = torch.as_tensor(val_weight[f], device=device)
@@ -1639,8 +1678,10 @@ class GeneticCnnModel(GentunModel):
         **config,
     ) -> np.ndarray:
         """One program's CV call; with telemetry on, a ``cv_call`` span
-        (``pop``, ``n_real``, ``kfold``) over its ``setup``, ``init_draw``
-        and ``upload`` spans and ``_run_segmented``'s."""
+        (``pop``, ``n_real``, ``kfold`` and, on a CUDA device, the
+        allocator's ``reserved_bytes`` at the call's end, graph pools
+        included) over its ``setup``, ``init_draw`` and ``upload`` spans and
+        ``_run_segmented``'s."""
         with _tele.span("cv_call") as call:
             with _tele.span("setup"):
                 cfg = _normalize_config(x_train, y_train, config)
@@ -1676,11 +1717,14 @@ class GeneticCnnModel(GentunModel):
                 if warmed:
                     logger.debug("warm start: %d/%d slots inherited banked params", warmed,
                                  n_real)
-            return _run_segmented(
+            accs = _run_segmented(
                 cfg, model, masks, params, local, x_dev, y_dev, val_idx, val_weight,
                 batch_idx, steps_per_epoch, eval_bs, warm_keys=warm_keys, mesh=mesh,
                 batch_rows=batch_rows,
-            ).mean(axis=0)[:n_real]
+            )
+            if device.type == "cuda" and _tele.enabled():
+                call.set(reserved_bytes=torch.cuda.memory_reserved(device))
+            return accs.mean(axis=0)[:n_real]
 
     # -- final holdout evaluation (not part of the reference's API) --------
 

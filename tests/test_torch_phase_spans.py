@@ -57,7 +57,8 @@ def _call(data, on: bool):
 def test_a_call_gives_the_executor_span_tree(data):
     _, records = _call(data, on=True)
     (call,) = [r for r in records if r["kind"] == "cv_call"]
-    assert call["attrs"] == {"pop": 4, "n_real": 3, "kfold": 2}  # 3 genomes pad to bucket 4
+    # 3 genomes pad to bucket 4; no ``reserved_bytes`` off a CUDA device
+    assert call["attrs"] == {"pop": 4, "n_real": 3, "kfold": 2}
     children = [r for r in records if r is not call]
     assert {r["kind"] for r in children} == EXECUTOR
     assert all(r["parent_id"] == call["span_id"] and r["trace_id"] == call["trace_id"]
@@ -120,14 +121,29 @@ def test_every_span_is_a_range_on_the_same_clock(data):
 
 def test_train_spans_on_the_cpu_replay_nothing(data):
     """The CPU steps eagerly: every ``train`` span carries ``graph_steps``,
-    ``captures`` and ``fallbacks`` 0 and ``replay_s`` 0, no ``gentun.replay`` range
-    opens, and the phase ranges still count the steps."""
+    ``captures``, ``fallbacks`` and ``graph_skips`` 0 and ``replay_s`` 0, no
+    ``gentun.replay`` range opens, and the phase ranges still count the steps."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _, records = _call(data, on=True)
     trains = [r["attrs"] for r in records if r["kind"] == "train"]
     assert trains and all(a["graph_steps"] == 0 and a["captures"] == 0 and a["fallbacks"] == 0
-                          and a["replay_s"] == 0.0 for a in trains)
+                          and a["graph_skips"] == 0 and a["replay_s"] == 0.0 for a in trains)
     names = [e.name() for e in prof.profiler.kineto_results.events()]
     steps = sum(a["steps"] for a in trains)
     assert {p: names.count(f"gentun.{p}") for p in ("forward", "backward", "update", "replay")} \
         == {"forward": steps, "backward": steps, "update": steps, "replay": 0}
+
+
+@pytest.mark.card
+def test_a_call_on_the_card_gives_its_reserved_bytes(data):
+    """On a CUDA card the ``cv_call`` span carries the allocator's reserved
+    bytes at the call's end; the CPU test above shows it absent there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, y, genomes = data
+    spans.enable()
+    with spans.capture() as records:
+        GeneticCnnModel.cross_validate_population(x, y, genomes, **{**CFG, "mesh": "auto"})
+    (call,) = [r for r in records if r["kind"] == "cv_call"]
+    assert call["attrs"]["reserved_bytes"] > 0
+    assert call["attrs"]["reserved_bytes"] == int(call["attrs"]["reserved_bytes"])

@@ -124,6 +124,71 @@ def test_a_program_whose_capture_failed_builds_no_graph_again(monkeypatch):
     assert asked[0][1] >= 3  # the program's pop, padding included
 
 
+_C5_WIDTHS = dict(nodes=(5, 5, 5), kernels_per_layer=(64, 128, 256), dense_units=512,
+                  n_classes=100)
+_C2_WIDTHS = dict(nodes=(3, 4, 5), kernels_per_layer=(8, 16, 32), dense_units=500, n_classes=10)
+
+
+@pytest.mark.parametrize("widths, pop, batch, cached_gib, fits, asks_runtime", [
+    (_C5_WIDTHS, 50, 256, 0.0, False, True),
+    (_C5_WIDTHS, 50, 128, 0.0, True, True),
+    (_C5_WIDTHS, 50, 64, 0.0, True, True),
+    (_C5_WIDTHS, 50, 128, 60.0, True, False),
+    (_C2_WIDTHS, 20, 256, 0.0, True, True),
+    (_C2_WIDTHS, 20, 256, 5.0, True, False),
+], ids=["c5-p50-batch-256", "c5-p50-batch-128", "c5-p50-batch-64",
+        "c5-p50-batch-128-beside-held-blocks", "c2-p20-batch-256",
+        "c2-p20-batch-256-beside-held-blocks"])
+def test_the_fit_rule_on_an_80_gb_card(monkeypatch, widths, pop, batch, cached_gib, fits,
+                                       asks_runtime):
+    """``_graph_fits`` on an H100 with 79 GiB usable, part of it held unused
+    in the allocator's cache: config #5 at pop 50 captures at batch 64 and
+    128, where its captures took on the card, and not at 256, where the
+    capture ran out of memory; config #2 always fits.  Where the cache
+    alone holds both, the CUDA runtime is not asked for free memory."""
+    gib, asked = 2 ** 30, []
+
+    def mem_get_info(device=None):
+        asked.append(device)
+        return int((79 - cached_gib) * gib), 80 * gib
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", mem_get_info)
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: int(cached_gib * gib))
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device=None: 0)
+    cfg = {**widths, "input_shape": (32, 32, 3), "compute_dtype": "bfloat16",
+           "stage_exit_conv": False, "microbatch": 1}
+    assert port_cnn._graph_fits(cfg, pop, batch, torch.device("cuda", 0)) is fits
+    assert bool(asked) is asks_runtime
+
+
+def test_a_call_whose_graph_would_not_fit_skips_the_capture_and_steps_eagerly(monkeypatch):
+    """Where ``_graph_fits`` says the eager step and the graph's pool do not
+    fit together, an eligible call builds no graph: it steps eagerly to the
+    eager path's fitness, with ``graph_skips`` 1 on its first ``train`` span
+    and ``fallbacks`` 0 on all."""
+    x, y = _data(192, (8, 8, 1), 4, seed=0)
+    genomes = _genomes((3, 4), 3, seed=1)
+    eager = GeneticCnnModel.cross_validate_population(x, y, genomes, **CPU_CFG)
+    asked = []
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a step graph was built where it would not fit")
+
+    def does_not_fit(cfg, pop, batch, device):
+        asked.append((pop, batch, device.type))
+        return False
+
+    monkeypatch.setattr(port_cnn, "_graph_eligible", lambda *args: True)
+    monkeypatch.setattr(port_cnn, "_graph_fits", does_not_fit)
+    monkeypatch.setattr(port_cnn, "_StepGraph", refuse)
+    with _train_spans() as trains:
+        got = GeneticCnnModel.cross_validate_population(x, y, genomes, **CPU_CFG)
+    assert asked == [(4, 32, "cpu")]  # 3 genomes pad to 4 slots; batch 32
+    assert [a["graph_skips"] for a in trains] == [1] + [0] * (len(trains) - 1)
+    assert _sums(trains, "captures", "graph_steps", "fallbacks") == (0, 0, 0)
+    assert np.asarray(got).tobytes() == np.asarray(eager).tobytes()
+
+
 class _HeldGraph:
     def __init__(self, last):
         self.last = last
