@@ -2,8 +2,9 @@
 
 A CV call with spans on gives one ``cv_call`` span over its ``setup``,
 ``init_draw``, ``upload``, ``fold_load``, ``train``, ``eval`` and ``fetch``
-spans; each ``train`` span carries its steps' ``forward_s``, ``backward_s``
-and ``update_s``.  Under ``torch.profiler`` every span is also a
+spans; ``init_draw`` carries its ``streams``, ``elements`` and
+``draw_threads``, and each ``train`` span its steps' ``forward_s``,
+``backward_s`` and ``update_s``.  Under ``torch.profiler`` every span is also a
 ``gentun.<kind>`` range that starts where the span's ``t_wall`` says, and
 each step phase a ``gentun.<phase>`` range.  With spans off nothing of this
 runs, and the fitnesses are the same bits either way.
@@ -74,6 +75,16 @@ def test_a_call_gives_the_executor_span_tree(data):
         assert all(s > 0 for s in phases)
         assert sum(phases) <= r["dur_s"]
     assert sum(r["dur_s"] for r in children) <= call["dur_s"]
+
+
+def test_the_init_draw_span_carries_its_streams_elements_and_threads(data):
+    """``streams``: kfold × the 4 slots; ``elements``: each stream's weights,
+    36 + 3·144 (3×3 convs, 1 → 4 and 4 → 4 channels) + 64·16 + 16·4 (the
+    dense layers after the 2×2 pool); ``draw_threads`` 1: streams of 1,556
+    weights stay on the calling thread."""
+    _, records = _call(data, on=True)
+    (draw,) = [r for r in records if r["kind"] == "init_draw"]
+    assert draw["attrs"] == {"streams": 8, "elements": 8 * 1556, "draw_threads": 1}
 
 
 def test_fitnesses_are_the_same_bits_with_spans_on_and_off(data):
